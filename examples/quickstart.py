@@ -1,7 +1,7 @@
 """surfjax quickstart: build a scene, render, G-buffer, animate, fit.
 
-Runs everywhere JAX runs; on a TPU host add backend="pallas" to
-RenderSettings for the fused kernels. From the repo root:
+Runs everywhere JAX runs; on a GPU add backend="pallas" to
+RenderSettings for the fused Triton kernels. From the repo root:
 
     python examples/quickstart.py          # writes /tmp/surfjax_quickstart/
 

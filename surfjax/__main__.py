@@ -68,6 +68,8 @@ def cmd_animate(args):
     from surfjax.io.image import save_png
 
     scene, camera, settings, extras = _load(args)
+    if args.backend:
+        settings = settings.with_(backend=args.backend)
     anim = extras.get("animation") or {
         "type": "orbit", "frames": 16, "radius": 4.0, "height": -1.0}
     n = int(anim.get("frames", 16) if args.frames is None
@@ -124,6 +126,8 @@ def cmd_fit(args):
     from surfjax.pipeline.frame import render_frame
 
     scene, camera, settings, extras = _load(args)
+    if args.backend:
+        settings = settings.with_(backend=args.backend)
     fit_cfg = extras.get("fit", {})
     mode = args.mode or fit_cfg.get("type", "pose")
     steps = (int(fit_cfg.get("steps", 100)) if args.steps is None
@@ -189,6 +193,7 @@ def main(argv=None):
     pa.add_argument("--frames", type=int, default=None)
     pa.add_argument("--chunk-size", type=int, default=None,
                     help="chunked render with checkpoint/resume")
+    pa.add_argument("--backend", choices=("jnp", "pallas"), default=None)
     pa.set_defaults(fn=cmd_animate)
 
     pb = sub.add_parser("bench", help="run the benchmark harness")
@@ -200,6 +205,7 @@ def main(argv=None):
     pf.add_argument("--config", required=True)
     pf.add_argument("--mode", choices=("pose", "sdf"), default=None)
     pf.add_argument("--steps", type=int, default=None)
+    pf.add_argument("--backend", choices=("jnp", "pallas"), default=None)
     pf.set_defaults(fn=cmd_fit)
 
     args = p.parse_args(argv)

@@ -16,6 +16,7 @@ Schema (see configs/*.yaml for the five SPEC configs, BASELINE.json:7-11):
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Tuple
 
 import numpy as np
@@ -25,6 +26,156 @@ from surfjax.core.types import RenderSettings
 
 
 _CONFIG_DIR = [None]  # set by load_config for config-relative obj paths
+
+
+# ---------------------------------------------------------------------------
+# The YAML subset the configs are written in, parsed without a YAML
+# library: block mappings and "- " sequences by indentation, flow {...}
+# and [...] collections (which may span lines), "#" comments, and plain
+# or quoted scalars (int, float, true/false, null, else a string).
+# ---------------------------------------------------------------------------
+
+_KEY = re.compile(r"([A-Za-z_][\w\-]*)\s*:(?:\s+|$)")
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1].isspace()):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def _scalar(tok: str):
+    t = tok.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    if t.lower() in ("true", "false"):
+        return t.lower() == "true"
+    if t in ("", "~", "null"):
+        return None
+    for conv in (int, float):
+        try:
+            return conv(t)
+        except ValueError:
+            pass
+    return t
+
+
+def _skip(s: str, i: int) -> int:
+    while i < len(s) and s[i].isspace():
+        i += 1
+    return i
+
+
+def _flow(s: str, i: int):
+    """One flow value of s starting at i -> (value, index after it)."""
+    i = _skip(s, i)
+    if s[i] in "{[":
+        close = "}" if s[i] == "{" else "]"
+        out = {} if close == "}" else []
+        i = _skip(s, i + 1)
+        while s[i] != close:
+            if close == "}":
+                j = s.index(":", i)
+                out[_scalar(s[i:j])], i = _flow(s, j + 1)
+            else:
+                val, i = _flow(s, i)
+                out.append(val)
+            i = _skip(s, i)
+            if s[i] == ",":
+                i = _skip(s, i + 1)
+        return out, i + 1
+    j = i
+    while j < len(s) and s[j] not in ",]}":
+        j += 1
+    return _scalar(s[i:j]), j
+
+
+def _inline(text: str):
+    if text[:1] in "{[":
+        val, end = _flow(text, 0)
+        if text[end:].strip():
+            raise ValueError(f"unexpected text after {text[:end]!r}")
+        return val
+    return _scalar(text)
+
+
+def _logical_lines(text: str):
+    """-> [(indent, content)], comments dropped, a flow collection that
+    spans lines joined into one."""
+    out, pending = [], None
+    for raw in text.splitlines():
+        line = _strip_comment(raw)
+        if pending is not None:
+            pending = (pending[0], pending[1] + " " + line.strip())
+        elif line.strip():
+            pending = (len(line) - len(line.lstrip(" ")), line.strip())
+        else:
+            continue
+        c = pending[1]
+        if c.count("{") + c.count("[") <= c.count("}") + c.count("]"):
+            out.append(pending)
+            pending = None
+    if pending is not None:
+        raise ValueError(f"unclosed flow collection: {pending[1]!r}")
+    return out
+
+
+def _is_item(content: str) -> bool:
+    return content == "-" or content.startswith("- ")
+
+
+def _block(lines, i: int, indent: int):
+    """The block node whose first line is lines[i], at this indent
+    -> (value, index of the first line after it)."""
+    if _is_item(lines[i][1]):
+        seq = []
+        while (i < len(lines) and lines[i][0] == indent
+               and _is_item(lines[i][1])):
+            rest = lines[i][1][1:].strip()
+            if not rest:
+                val, i = _block(lines, i + 1, lines[i + 1][0])
+            elif _KEY.match(rest):
+                # a mapping that starts on the dash line: its keys sit
+                # at the column where `rest` starts
+                col = indent + len(lines[i][1]) - len(rest)
+                lines[i] = (col, rest)
+                val, i = _block(lines, i, col)
+            else:
+                val, i = _inline(rest), i + 1
+            seq.append(val)
+        return seq, i
+    out = {}
+    while i < len(lines) and lines[i][0] == indent:
+        m = _KEY.match(lines[i][1])
+        if not m:
+            raise ValueError(f"expected 'key:' at {lines[i][1]!r}")
+        key, rest = m.group(1), lines[i][1][m.end():].strip()
+        i += 1
+        if rest:
+            out[key] = _inline(rest)
+        elif i < len(lines) and (lines[i][0] > indent or (
+                lines[i][0] == indent and _is_item(lines[i][1]))):
+            out[key], i = _block(lines, i, lines[i][0])
+        else:
+            out[key] = None
+    return out, i
+
+
+def parse_yaml(text: str):
+    """Parse a config written in the YAML subset above."""
+    lines = _logical_lines(text)
+    if not lines:
+        return None
+    val, i = _block(lines, 0, lines[0][0])
+    if i != len(lines):
+        raise ValueError(f"bad indentation at {lines[i][1]!r}")
+    return val
 
 
 _NODE_KEYS = {
@@ -147,9 +298,8 @@ def load_config(path: str):
     """-> (scene, camera, settings, extras dict)."""
     import os
 
-    import yaml
     with open(path) as fh:
-        cfg = yaml.safe_load(fh)
+        cfg = parse_yaml(fh.read())
     _CONFIG_DIR[0] = os.path.dirname(os.path.abspath(path))
 
     scene = api.Scene()

@@ -185,13 +185,14 @@ def quadratic_smallest_root(b_half, c):
 # ---------------------------------------------------------------------------
 # Bitwise-portable f32 log (r4 verdict Next #6).
 #
-# tools/op_parity.py pins jnp.log as the largest single-op cross-backend
-# deviation on Mosaic (up to 4023 ULP vs host libm), which perturbs every
+# tools/op_parity.py measures jnp.log as the largest single-op
+# cross-backend deviation (a device log can sit thousands of ULP from
+# host libm), which perturbs every
 # Mandelbulb DE value ~5e-4 rel in the epilogue and feeds the eps-band
 # hit decorrelation behind the c3/c5 marched carve-out. This
 # implementation uses ONLY ops that round identically everywhere
 # (int bit ops, f32 mul/add/compare/select — each written as a separate
-# two-round op; Mosaic is two-round per op_parity, the NumPy and
+# two-round op; tools/op_parity.py checks a device for it, the NumPy and
 # strict-FP C++ (-ffp-contract=off) goldens likewise), so the kernel and
 # both oracles compute bit-identical logs by construction.
 #

@@ -51,10 +51,10 @@ def rodrigues(w):
 def _matmul9(a, b):
     """(9,) row-major 3x3 product a @ b.
 
-    HIGHEST precision: the TPU's default matmul multiplies in bf16
-    (~4e-3 rel — the same class as the r4 mesh-cull find), which would
-    perturb every camera ray of a fitted pose; a 3x3 product is free
-    at full precision."""
+    HIGHEST precision: a float32 matmul on the GPU defaults to TF32
+    (10-bit mantissa, ~1e-3 rel — the failure class of the mesh-cull
+    find in kernels/mesh_tile.py), which would perturb every camera ray
+    of a fitted pose; a 3x3 product is free at full precision."""
     a = a.reshape(3, 3)
     b = b.reshape(3, 3)
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST).reshape(9)
@@ -135,17 +135,16 @@ def pose_loss_and_grad(scene, camera, settings: RenderSettings,
                        target_value: float = 0.5, pixel_weight=None):
     """One pose-fit loss+gradient evaluation at a FIXED probe point.
 
-    Used by the device fidelity gate (tools/fidelity_matrix.py --check,
-    c5 row): the same deterministic computation runs on the TPU pallas
-    path (the hybrid fit forward when settings.backend == 'pallas') and
-    on a forced-CPU jnp reference, and the results must agree to
-    tolerance. The target is a constant image (no cross-backend render
-    dependence) and the probe (w, dt) is fixed and nonzero so the
-    gradient is generic. Returns (loss, grad dict {'w','dt'}) as numpy.
+    The same deterministic computation runs on the hybrid fit forward
+    (settings.backend == 'pallas') and on the jnp pipeline, and the
+    results must agree to tolerance (tests/test_hybrid.py). The target
+    is a constant image (no cross-backend render dependence) and the
+    probe (w, dt) is fixed and nonzero so the gradient is generic.
+    Returns (loss, grad dict {'w','dt'}) as numpy.
 
-    pixel_weight: optional (H, W) float weights for the mse (the gate's
-    interior-gradient row excludes cross-backend hit-flip pixels this
-    way — r4 verdict Weak #3). None = plain mean (the fit's own loss).
+    pixel_weight: optional (H, W) float weights for the mse (e.g. to
+    exclude cross-backend hit-flip pixels). None = plain mean (the fit's
+    own loss).
     """
     static, params = scene.freeze()
     params = {k: jnp.asarray(v) for k, v in params.items()}
@@ -172,9 +171,8 @@ def pose_loss_and_grad(scene, camera, settings: RenderSettings,
 
 def pose_probe_hit(scene, camera, settings: RenderSettings,
                    w=(0.02, -0.01, 0.015), dt=(0.01, -0.02, 0.005)):
-    """(H, W) bool hit mask at the pose-fit probe pose — the fidelity
-    gate's hit-flip-pixel accounting renders this on both backends and
-    budgets the disagreement count explicitly (r4 verdict Weak #3)."""
+    """(H, W) bool hit mask at the pose-fit probe pose — rendered on both
+    backends to count the hit-flip pixels between them (chip_smoke.py)."""
     from surfjax.core.camera import flat_camera_rays
     from surfjax.pipeline.frame import render_rays
 

@@ -1,8 +1,8 @@
 """Differentiable PALLAS fit forward (component 19; VERDICT r4 Next #3).
 
-SURVEY.md §3.3 puts the Pallas stack (3.1) in the fit forward; until r4
-the fit paid the jnp pipeline's cost on TPU because the Pallas kernels
-have no AD rule. The key structural fact (engines/sdf.py IFT adjoint):
+SURVEY.md §3.3 puts the Pallas stack (3.1) in the fit forward; the
+Pallas kernels have no AD rule. The key structural fact (engines/sdf.py
+IFT adjoint):
 the backward pass needs only eval_sdf's vjp AT THE HIT POINTS — not a
 differentiable forward. So this module runs every march (primary K1,
 shadow K2) in the non-differentiable Pallas kernels and reconstructs the

@@ -3,7 +3,7 @@
 SURVEY.md §2 components 4 (quadric hit engine) and 7 (CSG combinators),
 BASELINE.json:5 "analytic quadric hits", :8 "CSG union/intersect".
 
-Design (TPU-first, branch-free): each convex leaf (sphere, halfspace plane,
+Design (branch-free): each convex leaf (sphere, halfspace plane,
 AAbox) contributes one entry/exit interval [t0, t1] along the ray (empty =
 (+BIG, -BIG)). The CSG solid's surface events are exactly the leaf interval
 endpoints, so the nearest CSG hit is found *without interval-list algebra*:

@@ -8,9 +8,9 @@ Moller-Trumbore edge vectors and area-weighted vertex normals.
 Device side (`intersect_mesh`): vectorized Amanatides-Woo DDA over rays —
 fixed step budget, per-step gather of a padded per-cell triangle list,
 branch-free Moller-Trumbore, hit accepted only within the current cell's
-exit t (grid-marching correctness). Gather-heavy and the least TPU-shaped
-component in the system (SURVEY.md §7 hard part 5); runs as jnp/XLA rather
-than Pallas in v1.
+exit t (grid-marching correctness). Gather-heavy (SURVEY.md §7 hard
+part 5); the pallas backend replaces it with the packet kernel
+(kernels/mesh_tile.py).
 """
 
 from __future__ import annotations

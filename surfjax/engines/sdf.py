@@ -60,9 +60,9 @@ def sdf_box(prm, p):
 def sdf_mandelbulb_general(prm, p, power: int, iterations: int):
     """General power-n Mandelbulb DE via the standard triplex-power trig
     form (z -> z^n + c with spherical-coordinate angle multiplication).
-    Differentiable and XLA-lowerable, but NOT Mosaic-lowerable (acos/atan2
-    have no Pallas TPU lowering) — the pallas backend rejects power != 8
-    up front; the jnp backend and the golden oracles use this form."""
+    Differentiable; lowers in XLA and through Pallas-Triton (acos/atan2/
+    sin/cos), so every backend and the golden oracles use this form for
+    power != 8."""
     c = (prm[0], prm[1], prm[2])
     scale = prm[3]
     bailout2 = prm[4] * prm[4] * F32(16.0)
@@ -113,10 +113,9 @@ def sdf_mandelbulb(prm, p, power: int, iterations: int):
 
     power == 8 uses the closed-form degree-8 triplex power expansion (the
     standard trigless formulation of z -> z^8 + c), so the iteration
-    contains only +, *, /, sqrt — no acos/atan2/sin/cos. This both lowers
-    cleanly in Pallas TPU (acos has no Mosaic lowering) and keeps the
+    contains only +, *, /, sqrt — no acos/atan2/sin/cos, which keeps the
     golden-parity carve-out down to the single final log(). Other powers
-    take the general trig form (jnp/golden paths only).
+    take the general trig form.
     """
     if power != 8:
         return sdf_mandelbulb_general(prm, p, power, iterations)
@@ -192,18 +191,11 @@ def sdf_mandelbulb(prm, p, power: int, iterations: int):
     return de * scale
 
 
-# Bulb iterations per while trip; swept on TPU (std iteration, r3):
-# 1->398.7/281.6, 2->459.8/338.1, 4->471.3/354.5, 8->436.4/334.9 Mrays/s
-# (LoD/exact). RE-SWEPT under the r4 cheb default (tools/unroll_sweep.py,
-# short harness repeats=2 n_frames=24 — reads ~3% under the full bench):
-# 2->522.4/386.1, 4->552.1/424.5, 8->520.5/408.0 — the optimum did NOT
-# shift. Env override exists ONLY for tools/unroll_sweep.py re-sweeps
-# (the optimum can shift when per-iteration cost changes, as the r4
-# cheb default could have); the committed default must carry the
-# measured numbers.
-import os as _os_mod
-
-DE_UNROLL = int(_os_mod.environ.get("SURFJAX_DE_UNROLL", "4"))
+# Bulb iterations per while trip. Unrolled iterations are value-exact
+# (masked substeps are identity for escaped lanes); they trade code size
+# and registers for fewer block-wide "all escaped" reductions. Not yet
+# swept on the GPU (PERF.md, open questions).
+DE_UNROLL = 4
 
 
 def _bulb_while_driver(prm, p, power: int, iterations: int, new_w_builder,
@@ -221,8 +213,8 @@ def _bulb_while_driver(prm, p, power: int, iterations: int, new_w_builder,
     bitwise-portable core.math.portable_log under
     RenderSettings(bulb_log='portable') — r4 verdict Next #6).
 
-    Exits as soon as every lane has escaped. Mosaic-safe: f32 escape
-    mask, scalar trip count. Per-trip cost trims (bitwise value-exact):
+    Exits as soon as every lane has escaped (f32 escape mask, scalar trip
+    count). Per-trip cost trims (bitwise value-exact):
       - the escape mask is NOT a loop carry: once a lane's m crosses
         bailout2 every later update is masked off, so m is frozen above
         the bailout and `m > bailout2` IS the sticky escape state;
@@ -232,10 +224,9 @@ def _bulb_while_driver(prm, p, power: int, iterations: int, new_w_builder,
         trip bound stays exact.
     """
     if power != 8:
-        raise NotImplementedError(
-            "Mandelbulb: the Pallas TPU kernel path specializes power=8 "
-            "(the general trig DE does not lower in Mosaic — acos/atan2). "
-            "Render general powers with RenderSettings(backend='jnp').")
+        # the closed-form expansion exists for power 8 only; the general
+        # trig form is a fixed-trip loop with no early escape
+        return sdf_mandelbulb_general(prm, p, power, iterations)
     c = (prm[0], prm[1], prm[2])
     scale = prm[3]
     bailout2 = prm[4] * prm[4] * F32(16.0)
@@ -332,15 +323,15 @@ def _new_w_cheb(px, py, pz, tiny):
             wx' = px + S*Im(w^8),  wz' = pz - S*Re(w^8)
         (Im(w^8) = 8xz(x^2-z^2)(x^4-6x^2z^2+z^4), Re(w^8) the
         x^8-28x^6z^2+... expansion — verified to fp noise over 1e5
-        random triples, docs/ROUND4.md).
+        random triples).
       - k1 = (k3-3y^2)^2 - 8y^4 replaces the 6-term expansion.
 
     Hand count: ~79 -> ~65 ops/iteration (~18%). Mathematically exact;
     f32 reassociation shifts each iterate by O(1 ulp), which the chaotic
     DE amplifies — hits land elsewhere in the eps band at silhouettes
     (the standard c3 carve-out class). Enable with
-    RenderSettings(bulb_iter="cheb"); fidelity-gated per config by
-    tools/fidelity_matrix.py like every other trajectory change.
+    RenderSettings(bulb_iter="cheb"); its parity with the jnp path on the
+    card is checked by chip_smoke.py like every other trajectory change.
     """
     def new_w(x, y, z):
         x2 = x * x
@@ -527,17 +518,13 @@ def _sphere_trace_impl(oir: ObjectIR, leaf_params, node_params, o, d,
 import functools as _functools
 import os as _os
 
-# IFT silhouette-denominator clamp (see _sphere_trace_bwd). Env override
-# exists for attribution sweeps (tools/c5_attribution.py measures grad
-# cross-backend agreement vs clamp). Default MEASURED on the c5 pose
-# probe (TPU, 2026-08-18): at 1e-4 the clamp is inactive (zero hit px
-# have |∇f·d| < 1e-3; q1 of the distribution is 1.0e-1) yet device-vs-
-# CPU grad rel L2 is 1.87e-1 — a handful of near-grazing lanes amplify
-# FP-noise-limited contributions by up to 1/clamp. At 1e-2 the clamp
-# touches 3/19629 hit px (0.015%) and grad rel L2 drops to 4.3e-2
-# (cos 0.9991); the residual is 9 cross-backend hit-flip px (whole-
-# contribution flips no clamp can reconcile). 1e-1 would touch 0.9% of
-# px for 5.6e-3 — too invasive. So 1e-2.
+# IFT silhouette-denominator clamp (see _sphere_trace_bwd). On the c5
+# pose probe at 1e-4 the clamp is inactive (no hit pixel has
+# |∇f·d| < 1e-3), yet a handful of near-grazing lanes amplify
+# FP-noise-limited contributions by up to 1/clamp, so two backends'
+# gradients disagree; 1e-2 touches ~0.015% of hit pixels and removes
+# that amplification, 1e-1 would touch ~1% — so 1e-2. The env override
+# exists for sweeps of that trade.
 _IFT_DENOM_CLAMP = float(_os.environ.get("SURFJAX_IFT_CLAMP", "1e-2"))
 
 
@@ -573,8 +560,7 @@ def _sphere_trace_bwd(oir, t_min, max_steps, hit_eps, eps_scale, res, cts):
     # the IFT's amplification bound: near-silhouette lanes scale g_t by up
     # to 1/clamp, so a too-small floor lets a handful of grazing pixels
     # dominate the image gradient with FP-noise-limited contributions
-    # (measured: on the c5 pose probe, TPU-vs-CPU grad rel L2 was 1.9e-1
-    # at clamp=1e-4 — tools/c5_attribution.py pins the dependence).
+    # (see _IFT_DENOM_CLAMP).
     clamp = F32(_IFT_DENOM_CLAMP)
     denom = jnp.where(jnp.abs(denom) < clamp,
                       jnp.where(denom >= F32(0.0), clamp, -clamp),

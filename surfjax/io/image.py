@@ -25,11 +25,27 @@ def tonemap_u8(rgb: np.ndarray) -> np.ndarray:
 
 
 def save_png(path: str, rgb) -> None:
-    from PIL import Image
+    """8-bit RGB PNG (tonemapped), written with the standard library:
+    one IDAT of zlib-compressed scanlines, filter type 0 on each."""
+    import struct
+    import zlib
     arr = tonemap_u8(np.asarray(rgb))
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
-    Image.fromarray(arr, "RGB").save(path)
+    h, w = arr.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          arr.reshape(h, w * 3)], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0,
+                                              0, 0))
+                 + chunk(b"IDAT", zlib.compress(raw, 6))
+                 + chunk(b"IEND", b""))
 
 
 def save_exr(path: str, channels) -> None:

@@ -1,26 +1,29 @@
 """Packet (per-tile) triangle-mesh intersection for the Pallas backend.
 
-The grid-DDA traversal (engines/mesh.py) is correct everywhere but is
-element-gather bound — measured ~6.8 s/frame at 1080p on TPU (element
-gathers run ~50x below HBM bandwidth). The TPU-shaped replacement:
+The grid-DDA traversal (engines/mesh.py) is correct everywhere, but it
+runs as one while loop over the whole ray batch with k_max candidate
+gathers per cell step. The packet design instead tests each tile's
+candidate list inside one kernel block:
 
-  1. XLA side, per frame: clip every ray to the mesh AABB; each kernel
-     tile's frustum is the AABB of its lanes' entry/exit segment endpoints
-     (exact for line segments, hence conservative for the tile). Candidate
-     triangles = tri-AABB vs tile-AABB overlap, compacted to a padded
-     (tiles, K) index table by prefix-sum scatter; candidate data is one
-     fast row-gather of the packed triangle table.
-  2. Pallas kernel, per tile: fori over the tile's candidate count with
-     dynamic scalar reads from the VMEM candidate block — branch-free
-     Moller-Trumbore over the whole (tile_rows, 128) ray block, capturing
-     the winning triangle's geometric normal and barycentric-interpolated
-     vertex normals in-loop (no post-hoc gathers). Tiles whose candidate
-     count overflows K fall back to scanning the full packed table
-     (VMEM-resident) under a tile-level cond — correctness never depends
-     on K.
+  1. XLA side, per frame: clip every ray to the mesh AABB; each
+     candidate tile's frustum is the AABB of its lanes' entry/exit
+     segment endpoints (exact for line segments, hence conservative for
+     the tile), refined by three oriented separating axes. Candidate
+     triangles are compacted to a padded (tiles, K) index table by a
+     prefix-sum scatter; candidate data is one row-gather of the packed
+     triangle table.
+  2. Pallas kernel (Triton route), one program per tile_rows x 128 ray
+     block: a loop over its tile's candidates with scalar reads of each
+     candidate row — branch-free Moller-Trumbore over the block,
+     capturing the winning triangle's geometric normal and
+     barycentric-interpolated vertex normals in-loop (no post-hoc
+     gathers). Tiles whose candidate count overflows K scan the full
+     packed table instead (selected by lax.cond outside the kernel, read
+     from device memory) — correctness never depends on K.
 
-Candidate sets are conservative, so results equal brute-force/grid-DDA
-nearest hits exactly.
+A candidate tile spans CAND_ROWS rows of 128 rays, so several ray blocks
+share one candidate list. Candidate sets are conservative, so results
+equal brute-force/grid-DDA nearest hits exactly.
 """
 
 from __future__ import annotations
@@ -29,31 +32,22 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from surfjax.core.math import BIG, F32
 from surfjax.core.types import RenderSettings
-from surfjax.engines.mesh import MeshStatic, _mesh_arrays
-from surfjax.kernels.render_tile import LANES, _interpret
+from surfjax.engines.mesh import MeshStatic
+from surfjax.kernels.render_tile import LANES, _pallas
 
 PACKET_K = 1024  # candidate budget per tile; overflow -> full-table scan
-# Triangle tests per loop trip (same while-trip overhead amortization as
-# render_tile's MARCH_UNROLL — carry save/restore of 7 tile arrays plus,
-# on the any-hit path, an all-done reduction, paid once per trip instead
-# of once per triangle). Substeps past the valid count are masked off
-# (clamped reads, hit &= k < n) so any unroll value is value-exact.
-# Swept on the c4 CONFIG workload (8192-tri octasphere-5, 1080p, TPU):
-# 1 -> 44.2 ms/frame (shadow any-hit +30.1), 8 -> 25.0, 16 -> 23.4,
-# 32 -> 23.2 (flat) — the one-triangle-per-trip carry traffic was 1.9x
-# of the whole frame.
-MESH_UNROLL = 16
-# Above this triangle count the full packed table (96 B/tri) no longer
-# fits comfortably in VMEM alongside the ray/candidate blocks, so the
-# overflow fallback would blow the ~16 MB budget; callers must route
-# such meshes through the grid-DDA path (engines/mesh.intersect_mesh).
-MAX_PACKET_TRIS = 40_000
+# Rows of 128 rays per candidate tile (a multiple of every tile_rows):
+# larger tiles mean fewer, longer candidate lists.
+CAND_ROWS = 16
+# Triangle tests per loop trip. Substeps past the valid count are masked
+# off (clamped reads, hit &= k < n) so any unroll value is value-exact;
+# a larger unroll means fewer all-done reductions on the any-hit path and
+# more code. Not yet swept on the GPU (PERF.md, open questions).
+MESH_UNROLL = 4
 
 
 def mesh_candidates(ms: MeshStatic, tri_packed, o2, d2, t_min, t_max,
@@ -122,8 +116,8 @@ def mesh_candidates(ms: MeshStatic, tri_packed, o2, d2, t_min, t_max,
     # Oriented (k-DOP) refinement: axis-aligned boxes are weak for long
     # diagonal segment bundles (shadow cones toward a point light sweep
     # the whole mesh AABB). Three per-tile separating axes — the mean
-    # segment direction and two orthogonals — projected by matmul (MXU,
-    # no gathers). Separating-axis logic is conservative: the segments'
+    # segment direction and two orthogonals — projected by matmul (no
+    # gathers). Separating-axis logic is conservative: the segments'
     # projections lie inside the endpoints' projection hull, so a
     # disjoint range proves no segment can touch the triangle.
     dsum = [jnp.where(valid, d2[ax], F32(0.0))
@@ -145,12 +139,13 @@ def mesh_candidates(ms: MeshStatic, tri_packed, o2, d2, t_min, t_max,
     verts = jnp.stack([v0, p1, p2], axis=0)                  # (3, F, 3)
     for k in range(3):
         a = axes[:, k, :]                                    # (tiles, 3)
-        # HIGHEST precision is load-bearing: the default MXU matmul
-        # multiplies in bf16 (~4e-3 rel error on O(1-10) coords), which
-        # can shrink a triangle's projected range past the 1e-4 eps and
-        # cull a truly-hit triangle (observed: 118 px dropped a near hit
-        # on c4 at tile_rows=64, depth 2.16 -> 3.91). The segment side
-        # (sa/sb) is elementwise f32, so both sides must round alike.
+        # HIGHEST precision is load-bearing: a float32 matmul on the GPU
+        # defaults to TF32 (10-bit mantissa, ~1e-3 rel error on O(1-10)
+        # coords), which can shrink a triangle's projected range past
+        # the 1e-4 eps and cull a truly-hit triangle — the same failure
+        # class as a bf16 product, which once dropped a near hit on 118
+        # c4 pixels (depth 2.16 -> 3.91). The segment side (sa/sb) is
+        # elementwise f32, so both sides must round alike.
         tproj = jnp.einsum("tc,vfc->tvf", a, verts,
                            precision=jax.lax.Precision.HIGHEST)
         tpro_lo = tproj.min(axis=1)
@@ -165,45 +160,39 @@ def mesh_candidates(ms: MeshStatic, tri_packed, o2, d2, t_min, t_max,
         overlap = overlap & (tpro_hi >= slo[:, None] - eps)
 
     counts = overlap.sum(axis=1).astype(jnp.int32)
-    # scatter-free compaction: the j-th candidate of tile t is the first
-    # f with cumsum(overlap)[t,f] == j+1, i.e. src(t,j) = #{f: cum <= j}.
-    # The broadcast compare-reduce fuses on TPU (measured 6x faster than
-    # the equivalent scatter — TPU scatters run at element-gather rates);
-    # chunked over f so the fused intermediate stays tile-sized.
+    # compaction: candidate f of tile t goes to slot cum[t, f] - 1;
+    # non-candidates and slots past K (overflow tiles) are dropped
     F_n = tri_packed.shape[0]
     cum = jnp.cumsum(overlap.astype(jnp.int32), axis=1)
-    j = jnp.arange(K, dtype=jnp.int32)
-    src = jnp.zeros((tiles, K), jnp.int32)
-    for s in range(0, F_n, 2048):
-        c = cum[:, s:s + 2048]
-        src = src + (c[:, :, None] <= j[None, None, :]).astype(
-            jnp.int32).sum(axis=1)
-    cand_ids = jnp.minimum(src, jnp.int32(F_n - 1))  # slots >= count unused
+    slot = jnp.where(overlap, cum - 1, K)
+    cand_ids = jnp.zeros((tiles, K), jnp.int32).at[
+        jnp.arange(tiles, dtype=jnp.int32)[:, None], slot].set(
+        jnp.broadcast_to(jnp.arange(F_n, dtype=jnp.int32)[None, :],
+                         slot.shape), mode="drop")  # slots >= count unused
     cand_data = tri_packed[cand_ids]
     return cand_data, counts
 
 
 def _mesh_body(settings, smooth: bool, any_hit: bool, with_full: bool,
-               *refs):
+               blocks_per_tile: int, *refs):
     if with_full:
         (counts_ref, cand_ref, full_ref,
          ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, tmax_ref,
          t_ref, nsx_ref, nsy_ref, nsz_ref, ngx_ref, ngy_ref,
          ngz_ref) = refs
     else:
-        # no-overflow variant: the 786KB-per-step full-table staging is
-        # the dominant per-tile fixed cost; when no tile overflows K the
-        # caller selects this kernel (lax.cond) and skips it entirely
+        # no-overflow variant: when no tile overflows K the caller
+        # selects this kernel (lax.cond) and no block carries the
+        # full-table branch
         (counts_ref, cand_ref,
          ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, tmax_ref,
          t_ref, nsx_ref, nsy_ref, nsz_ref, ngx_ref, ngy_ref,
          ngz_ref) = refs
         full_ref = None
-    i = pl.program_id(0)
-    count = counts_ref[i]
-    o = (ox_ref[:], oy_ref[:], oz_ref[:])
-    d = (dx_ref[:], dy_ref[:], dz_ref[:])
-    t_maxv = tmax_ref[:]
+    count = counts_ref[pl.program_id(0) // blocks_per_tile]
+    o = (ox_ref[...], oy_ref[...], oz_ref[...])
+    d = (dx_ref[...], dy_ref[...], dz_ref[...])
+    t_maxv = tmax_ref[...]
     eps = F32(1e-7)
     t_min = F32(settings.t_min if not any_hit else settings.shadow_eps)
 
@@ -276,7 +265,8 @@ def _mesh_body(settings, smooth: bool, any_hit: bool, with_full: bool,
     if any_hit:
         # any-hit wants the first occlusion, not the nearest: exit the
         # scan once every lane has found a hit or was inactive (miss
-        # lanes carry t_maxv <= t_min). f32 done mask per Mosaic rules.
+        # lanes carry t_maxv <= t_min). f32 done mask: the block-wide
+        # test is a float min reduction.
         # MESH_UNROLL guarded tests per trip; the trip may record up to
         # MESH_UNROLL-1 extra (nearer) occluders after the last lane's
         # first hit — the occlusion BOOLEAN the caller consumes is
@@ -336,13 +326,13 @@ def _mesh_body(settings, smooth: bool, any_hit: bool, with_full: bool,
 
             out = jax.lax.cond(count > K, full_path, cand_path)
     t_best, nsx, nsy, nsz, ngx, ngy, ngz = out
-    t_ref[:] = t_best
-    nsx_ref[:] = nsx
-    nsy_ref[:] = nsy
-    nsz_ref[:] = nsz
-    ngx_ref[:] = ngx
-    ngy_ref[:] = ngy
-    ngz_ref[:] = ngz
+    t_ref[...] = t_best
+    nsx_ref[...] = nsx
+    nsy_ref[...] = nsy
+    nsz_ref[...] = nsz
+    ngx_ref[...] = ngx
+    ngy_ref[...] = ngy
+    ngz_ref[...] = ngz
 
 
 def mesh_tile_kernel(ms: MeshStatic, settings: RenderSettings, tri_packed,
@@ -354,49 +344,49 @@ def mesh_tile_kernel(ms: MeshStatic, settings: RenderSettings, tri_packed,
     """
     rows = o2[0].shape[0]
     R = settings.tile_rows
-    tiles = rows // R
+    C = max(CAND_ROWS, R)
+    pad = -rows % C
+    t_maxv = jnp.asarray(t_max, jnp.float32) * jnp.ones_like(o2[0])
+    rays = [jnp.pad(a, ((0, pad), (0, 0)), mode="edge")
+            for a in (*o2, *d2, t_maxv)]
+    rows_p = rows + pad
     # candidate segments must start where the in-kernel accept test does:
     # shadow (any-hit) rays accept from shadow_eps, not t_min — culling
     # from t_min would drop contact occluders in (shadow_eps, t_min)
     # whenever a config raises t_min (review r3)
     t_seg_min = settings.shadow_eps if any_hit else settings.t_min
-    cand, counts = mesh_candidates(ms, tri_packed, o2, d2, t_seg_min,
-                                   t_max, R)
-    t_maxv = jnp.asarray(t_max, jnp.float32) * jnp.ones_like(o2[0])
+    cand, counts = mesh_candidates(ms, tri_packed, rays[:3], rays[3:6],
+                                   t_seg_min, rays[6], C, K=PACKET_K)
+    G = C // R   # ray blocks per candidate tile
 
-    shp = jax.ShapeDtypeStruct((rows, LANES), jnp.float32)
-    ray_spec = pl.BlockSpec((R, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
+    shp = jax.ShapeDtypeStruct((rows_p, LANES), jnp.float32)
+    ray_spec = pl.BlockSpec((R, LANES), lambda i: (i, 0))
     base_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),            # counts
-        pl.BlockSpec((1, cand.shape[1], 24), lambda i: (i, 0, 0),
-                     memory_space=pltpu.VMEM),            # candidates
+        pl.BlockSpec(),                                        # counts
+        pl.BlockSpec((1, cand.shape[1], cand.shape[2]),
+                     lambda i: (i // G, 0, 0)),               # candidates
     ]
 
     def call(with_full: bool):
         body = functools.partial(_mesh_body, settings, ms.smooth, any_hit,
-                                 with_full)
-        full_spec = ([pl.BlockSpec(memory_space=pltpu.VMEM)]
-                     if with_full else [])
+                                 with_full, G)
+        full_spec = [pl.BlockSpec()] if with_full else []
         full_arg = (tri_packed,) if with_full else ()
-        return pl.pallas_call(
+        return _pallas(
             body,
-            out_shape=(shp,) * 7,
-            grid=(tiles,),
+            grid=(rows_p // R,),
             in_specs=base_specs + full_spec + [ray_spec] * 7,
             out_specs=(ray_spec,) * 7,
-            interpret=_interpret(),
-        )(counts, cand, *full_arg, o2[0], o2[1], o2[2], d2[0], d2[1],
-          d2[2], t_maxv)
+            out_shape=(shp,) * 7, tile_rows=R,
+        )(counts, cand, *full_arg, *rays)
 
     K = cand.shape[1]
     if tri_packed.shape[0] <= K:
         out = call(False)  # overflow impossible
     else:
-        # staging the full table costs ~20us per grid step; overflow is
-        # rare after the oriented-axis culling, so select the no-table
-        # kernel at runtime whenever no tile exceeds K
+        # select the no-table kernel at runtime whenever no tile exceeds
+        # K (overflow is rare after the oriented-axis culling)
         out = jax.lax.cond(jnp.any(counts > jnp.int32(K)),
                            lambda: call(True), lambda: call(False))
-    t, nsx, nsy, nsz, ngx, ngy, ngz = out
+    t, nsx, nsy, nsz, ngx, ngy, ngz = (a[:rows] for a in out)
     return t, (nsx, nsy, nsz), (ngx, ngy, ngz)

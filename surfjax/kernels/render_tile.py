@@ -1,4 +1,4 @@
-"""Fused Pallas TPU kernels (SURVEY.md §2 components 6 + 17, §1 L2).
+"""Fused Pallas kernels for the GPU (SURVEY.md §2 components 6 + 17, §1 L2).
 
 BASELINE.json:5 — "pixel-tile ray generation, ray-surface intersection
 (analytic quadric hits + bounded sphere-tracing for SDFs) as a masked
@@ -7,32 +7,37 @@ normal estimation ... fused into one framebuffer-resident pass. Secondary
 rays (hard/soft shadows, AO probes) re-enter the same intersection kernel
 batched."
 
-Kernel architecture (per pixel tile of tile_rows x 128 rays, VMEM-resident):
+Every kernel is a `pl.pallas_call` on the Triton route
+(`backend="triton"`). One program handles one block of tile_rows x 128
+rays, which is one TILE_H x TILE_W pixel patch of the image (see
+tile_shape): each thread holds one ray or a few, ray state stays in
+registers for the whole march, and a block leaves its while loops as
+soon as its own rays are done, independently of every other block.
 
   K1 `render_tile_kernel` — the fused primary pass:
       analytic objects' exact hits (closed form, statically unrolled)
-      -> bounded march of the combined scene SDF, t_max clipped to the
-         analytic hit (so analytic surfaces cost zero march steps), with
-         PER-TILE early exit: the while_loop stops the moment every lane in
-         the tile is done, not after a fixed 256 trips
-      -> winner resolution (object id via per-object SDF argmin at the hit)
+      -> bounded march of each SDF object, t_max clipped to the nearest
+         hit so far, with per-block early exit
       -> normals: analytic (quadric/slab, with CSG orientation signs) or
-         4-tap tetrahedron FD of the scene SDF
+         4-tap tetrahedron FD of the winning object's SDF
       -> AO hemisphere probes fused in (they re-enter the same SDF evals)
 
-  K2 `shadow_tile_kernel` — secondary-ray re-entry: batched shadow rays
+  K2 `trace_rays_kernel` — secondary-ray re-entry: batched shadow rays
       against the same scene (analytic any-hit + SDF march / penumbra
       accumulator) -> visibility factor per (hit, light).
 
-Shading itself is a handful of elementwise FLOPs and is left to XLA, which
-fuses it with the kernel outputs.
+  KF `frame_fused_kernel` — mesh-free frames and sequences in one call:
+      ray generation from the program id, K1's trace, AO, K2's shadows
+      and shading; no ray or G-buffer array round-trips device memory.
 
-Mosaic constraints honored: no bool vectors in while_loop carries (f32
-masks), scene parameters read as scalars from SMEM, static scene structure
-fully unrolled into straight-line vector code.
+Scene parameters, cameras, lights, materials and crowd tables are small
+global arrays that every block reads with scalar loads. Masks in while
+loop carries are f32, and block-wide "all done" tests are float min/max
+reductions (a boolean `any`/`all` reduction has no Triton lowering).
 
 The jax.numpy twin of this exact algorithm is `scene_march_twin` below
-(SURVEY.md §4.3 kernel/twin parity).
+(SURVEY.md §4.3 kernel/twin parity). On the CPU every kernel runs in the
+Pallas interpreter, which is how the test suite exercises them.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from surfjax.core.math import BIG, F32
 from surfjax.core.scene_compile import (
@@ -57,15 +62,45 @@ from surfjax.shade import shade_object
 
 
 LANES = 128
+# Pixel patch of one 128-ray row of a tile block: a block of tile_rows
+# rows covers (TILE_H * tile_rows) x TILE_W pixels (see tile_shape).
+TILE_W = 16
 
 
 def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+    """Pallas route for the default backend: the interpreter on the CPU
+    (the test path), compiled Triton on the GPU. Any other platform is
+    refused rather than silently interpreted."""
+    backend = jax.default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise RuntimeError(
+        f"the pallas backend runs on 'gpu' (Triton) or 'cpu' (interpreted "
+        f"for tests); the default JAX backend is {backend!r}")
+
+
+def num_warps(tile_rows: int) -> int:
+    """Warps per block: one ray per thread up to 8 warps (256 rays)."""
+    return min(max(tile_rows * LANES // 32, 1), 8)
+
+
+def _pallas(body, *, grid, in_specs, out_specs, out_shape, tile_rows: int):
+    """pl.pallas_call on the Triton route with this module's launch
+    shape (num_warps from the block size, no software pipelining: the
+    kernels are loops over registers, not streams of loads)."""
+    return pl.pallas_call(
+        body, out_shape=out_shape, grid=grid, in_specs=in_specs,
+        out_specs=out_specs, backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=num_warps(tile_rows), num_stages=1),
+        interpret=_interpret())
 
 
 def _read_params(lp_ref, np_ref, n_leaves: int, n_nodes: int):
-    """Read scene parameter scalars out of SMEM into static structures that
-    engines' code can index (python lists of scalar tuples)."""
+    """Read scene parameter scalars into static structures that engines'
+    code can index (python lists of scalar tuples)."""
     lp = [tuple(lp_ref[i, j] for j in range(8)) for i in range(n_leaves)]
     np_list = [[np_ref[i, 0]] for i in range(n_nodes)]
 
@@ -204,6 +239,8 @@ def _leaf_bound_scalars(lf, lp, lower: bool = False,
         r = jnp.sqrt((prm[3] * prm[3] + prm[4] * prm[4]) + prm[5] * prm[5])
         return prm[0], prm[1], prm[2], r
     if lf.kind == LEAF_MANDELBULB:
+        if lf.p0 != 8:
+            return None  # the bound factors are validated for power 8
         if lower:
             return prm[0], prm[1], prm[2], prm[3] * F32(BULB_BOUND_LOWER)
         r_cover = prm[3] * F32(BULB_BOUND_COVER)
@@ -294,12 +331,9 @@ def _proxy_sdf_fn(sdf_objs, lp, nparams):
 def _march(sdf_fn, o, d, t_start, t_clip, max_steps: int, hit_eps: float,
            t_init=None, relax: float = 1.0, eps_scale: float = 0.0,
            park=None):
-    """Bounded scene march with per-tile early exit. f32 mask carries.
+    """Bounded scene march with per-block early exit. f32 mask carries.
 
-    Returns (t, hit_f, unres_f): hit_f is a 0/1 f32 hit mask; unres_f
-    flags lanes whose march was still active when the step budget ran
-    out (no hit, t below t_clip) — the capped-march residual pass
-    (see _render_padded) re-marches exactly those. Lanes whose t_clip
+    Returns (t, hit_f): hit_f is a 0/1 f32 hit mask. Lanes whose t_clip
     is already below t_start skip the march entirely (done at trip 0).
     t_init overrides the per-lane starting t (two-phase handoff).
 
@@ -377,32 +411,18 @@ def _march(sdf_fn, o, d, t_start, t_clip, max_steps: int, hit_eps: float,
                                                     done, hit)
         return i + unroll, t, h_prev, st_prev, done, hit
 
-    _, t, _, _, done, hit = jax.lax.while_loop(
+    _, t, _, _, _, hit = jax.lax.while_loop(
         cond, body, (0, t0, z0, z0, done0, hit0))
-    return t, hit, F32(1.0) - done
+    return t, hit
 
 
 _PROXY_SWITCH = 0.08  # hand off to the full SDF within this proxy distance
-# March while-trip unrolls, swept on the TPU (c3 1080p, LoD/exact
-# Mrays/s): (march, soft) 1/1 -> 471.3/354.5, 2/1 -> 481.8/361.0,
-# 2/2 -> 500.4/371.0, 4/4 -> 513.0/376.7, 8/8 -> 516.3/380.2,
-# 8/4 -> 515.5/378.0, 16/16 -> 425.1/311.8. Unrolled substeps are
-# value-exact (done lanes masked; divisor logic keeps step budgets
-# exact); waste is at most unroll-1 park-point evals per tile march.
-# Env overrides exist ONLY for tools/unroll_sweep.py re-sweeps (the
-# optimum can shift when per-iteration cost changes, e.g. the r4 cheb
-# default); committed defaults carry the measured numbers above.
-# RE-SWEPT under cheb (r4, short harness repeats=2 n_frames=24):
-# march 4/8/16 -> 559.3/558.8/549.6 LoD, 424.3/426.2/421.6 exact;
-# soft 4/8/16 -> 549.7/559.4/554.7 LoD, 421.3/426.2/424.0 exact —
-# both optima unchanged (4 vs 8 within run noise on march).
-import os as _os_mod
-
-MARCH_UNROLL = int(_os_mod.environ.get(
-    "SURFJAX_MARCH_UNROLL", "8"))       # full-SDF march substeps per trip
-SOFT_MARCH_UNROLL = int(_os_mod.environ.get(
-    "SURFJAX_SOFT_MARCH_UNROLL", "8"))  # penumbra-march substeps per trip
-PRIME_UNROLL = 8        # cone-prime substeps per while trip (both phases)
+# March substeps per while trip. Unrolled substeps are value-exact (done
+# lanes masked; the divisor logic keeps step budgets exact); they trade
+# code size and registers for fewer block-wide "all done" reductions.
+# Not yet swept on the GPU (PERF.md, open questions).
+MARCH_UNROLL = 2        # full-SDF march substeps per trip
+SOFT_MARCH_UNROLL = 2   # penumbra-march substeps per trip
 
 
 def _bulb_entry_shell(oir, lp, exit_margin: float):
@@ -475,25 +495,6 @@ def _scene_park_point(sdf_objs, lp):
     return (px, F32(0.0), F32(0.0))
 
 
-def _by_subtile(march, n_out, rows_per: int, o, d, *arrs):
-    """Run a march over independent (rows_per, 128) sub-blocks of the tile,
-    each with its own while loop — finer early-exit granularity than the
-    whole tile, recovering part of the intra-tile divergence tax. Extra
-    per-lane arrays (clip, primed t-start) are sliced alongside the rays."""
-    rows = o[0].shape[0]
-    if rows_per <= 0 or rows <= rows_per:
-        return march(o, d, *arrs)
-    arrs = [a * jnp.ones_like(o[0]) for a in arrs]
-    outs = [[] for _ in range(n_out)]
-    for k in range(rows // rows_per):
-        sl = slice(k * rows_per, (k + 1) * rows_per)
-        res = march(tuple(c[sl] for c in o), tuple(c[sl] for c in d),
-                    *(a[sl] for a in arrs))
-        for j in range(n_out):
-            outs[j].append(res[j])
-    return tuple(jnp.concatenate(ch, axis=0) for ch in outs)
-
-
 def _bound_entry(b, o, d, t_start, t_clip, exit_margin: float,
                  shell=None):
     """Closed-form replacement for marching a single-sphere proxy.
@@ -534,125 +535,6 @@ def _bound_entry(b, o, d, t_start, t_clip, exit_margin: float,
     return t1, clip2
 
 
-def _prime_march(proxy_fn, sdf_fn, o, d, t_min: float, t_max: float,
-                 k_m: float, steps: int, park=None):
-    """Cone march: largest per-lane t_safe such that EVERY ray within
-    angle k_m/2 of this one (same origin) has SDF > 0 on [t_min, t_safe].
-
-    Step rule s = (h - k*t)/(1 + k): along the whole segment [t, t+s] any
-    point within radius k*t' of the center ray keeps SDF >= h - (t'-t)
-    - k*t' >= 0, with equality only at the far endpoint — so advancing is
-    conservative for the entire cone, not just the center ray (the same
-    inequality the penumbra skip in _soft_march uses). The caller passes
-    k_m = 2x the true pixel-block cone, leaving children a k_blk*t
-    clearance margin at t_safe. Phase 1 uses the lower-bound proxy scene
-    (sound: proxy <= true SDF); phase 2 refines with the true SDF. Lanes
-    whose cone is blocked stop (t_safe keeps its last proven value);
-    lanes reaching t_max are proven clear over the full range.
-    """
-    k = F32(k_m)
-    inv1k = F32(1.0) / (F32(1.0) + k)
-    tmaxf = F32(t_max)
-    blk = F32(1e-3)
-    t_init = jnp.full_like(o[0], F32(t_min))
-
-    # largest unroll dividing the budget keeps the step count exact
-    unroll = next(u for u in range(min(PRIME_UNROLL, steps), 0, -1)
-                  if steps % u == 0)
-
-    def phase(fn, t0, handoff_sw, park_p=None):
-        # t is both the march position and the last proven-safe start:
-        # a stopped lane's t keeps its last advanced (proven) value, so
-        # no separate `safe` carry is needed (review r3: the old second
-        # carry was provably identical to t — pure per-trip overhead)
-        done0 = jnp.where(t0 >= tmaxf, F32(1.0), F32(0.0))
-
-        def cond(s):
-            i, _, done = s
-            return (i < steps) & (jnp.min(done) < F32(0.5))
-
-        def substep(t, done):
-            px = o[0] + t * d[0]
-            py = o[1] + t * d[1]
-            pz = o[2] + t * d[2]
-            if park_p is not None:
-                # DONE lanes stopped near (or on) the surface would pin
-                # every iterated-DE while-loop at full depth for the rest
-                # of the tile's march; park them far out instead. Value-
-                # exact: a done lane's h flows into nothing (see _march).
-                parked = done > F32(0.5)
-                px = jnp.where(parked, park_p[0], px)
-                py = jnp.where(parked, park_p[1], py)
-                pz = jnp.where(parked, park_p[2], pz)
-            h = fn((px, py, pz))
-            s_all = (h - k * t) * inv1k
-            stop = s_all <= t * blk
-            if handoff_sw is not None:
-                stop = stop | (h < handoff_sw)
-            done_new = jnp.maximum(done, jnp.where(stop, F32(1.0),
-                                                   F32(0.0)))
-            act = F32(1.0) - done_new
-            t_new = jnp.minimum(t + s_all, tmaxf)
-            t = jnp.where(act > F32(0.5), t_new, t)
-            over = jnp.where(t >= tmaxf, F32(1.0), F32(0.0))
-            done_new = jnp.maximum(done_new, act * over)
-            return t, done_new
-
-        def body(s):
-            i, t, done = s
-            for _ in range(unroll):
-                t, done = substep(t, done)
-            return i + unroll, t, done
-
-        _, t, _ = jax.lax.while_loop(cond, body, (0, t0, done0))
-        return t
-
-    t_safe = t_init
-    if proxy_fn is not None:
-        t_safe = phase(proxy_fn, t_safe, F32(_PROXY_SWITCH))
-    return phase(sdf_fn, t_safe, None, park_p=park)
-
-
-def _prime_body(static, settings, n_leaves, n_nodes, k_m,
-                lp_ref, np_ref, cm_ref,
-                ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, t0_ref):
-    del cm_ref  # priming is skipped when a crowd is active
-    lp, nparams = _read_params(lp_ref, np_ref, n_leaves, n_nodes)
-    o = (ox_ref[:], oy_ref[:], oz_ref[:])
-    d = (dx_ref[:], dy_ref[:], dz_ref[:])
-    _, sdf_objs, _ = _split(static)
-    sdf_fn = lambda p: _scene_sdf(sdf_objs, lp, nparams, p,
-                                  leaf_fn=_fast_leaf_fn(settings))
-    proxy_fn = _proxy_sdf_fn(sdf_objs, lp, nparams)
-    park = _scene_park_point(sdf_objs, lp)
-    t0_ref[:] = _prime_march(proxy_fn, sdf_fn, o, d, settings.t_min,
-                             settings.t_max, k_m, settings.max_steps,
-                             park=park)
-
-
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3))
-def prime_tile_kernel(static, settings: RenderSettings, k_m: float,
-                      rc: int, leaf_params, node_params, o, d):
-    """Coarse-grid cone-prime pass -> per-lane safe march start."""
-    rows_total = o[0].shape[0]
-    grid = (rows_total // rc,)
-    ir = static.ir
-    n_leaves = max(ir.n_leaves, 1)
-    n_nodes = node_params.shape[0]
-    body = functools.partial(_prime_body, static, settings, n_leaves,
-                             n_nodes, np.float32(k_m))
-    shp = jax.ShapeDtypeStruct((rows_total, LANES), jnp.float32)
-    return pl.pallas_call(
-        body,
-        out_shape=shp,
-        grid=grid,
-        in_specs=_param_specs() + _ray_specs(6, rc),
-        out_specs=_ray_specs(1, rc)[0],
-        interpret=_interpret(),
-    )(leaf_params, node_params, crowd_meta(static, settings),
-      o[0], o[1], o[2], d[0], d[1], d[2])
-
-
 def _fd_normal(sdf_fn, p, eps: float):
     e = F32(eps)
     s0 = sdf_fn((p[0] + e, p[1] - e, p[2] - e))
@@ -669,11 +551,11 @@ def _fd_normal(sdf_fn, p, eps: float):
 # ---------------------------------------------------------------------------
 # Vectorized object loop ("crowd") for large scenes — r3 verdict Weak #4.
 #
-# The per-object static unrolling above costs ~0.67 s warm compile per
-# object (docs/COMPONENTS.md "compile scaling"), which caps practical
-# scene size. With RenderSettings.vector_objects, single-leaf positively-
-# signed sphere/box SDF objects become a "crowd": ONE lax.fori_loop whose
-# body reads member parameters by dynamic SMEM index (cm meta rows +
+# The per-object static unrolling above traces and compiles every object
+# anew, which caps practical scene size. With RenderSettings.
+# vector_objects, single-leaf positively-signed sphere/box SDF objects
+# become a "crowd": ONE lax.fori_loop whose body reads member
+# parameters by dynamic scalar index (cm meta rows +
 # leaf_params rows) and runs the IDENTICAL per-member arithmetic as the
 # unrolled path (_bound_entry + _march; per-member FD normals; per-member
 # shadow marches / closed-form sphere penumbrae; gated AO terms; material
@@ -692,8 +574,7 @@ class CrowdIR(NamedTuple):
     each section). Pair sections (r5, verdict Next #4): objects whose
     tape is exactly op(leaf0, leaf1) with op in {union, smooth_union}
     and both leaves positive sphere/box — the repeated-structure CSG
-    class whose unrolled compile measured 90 s at 65 objects / 223 s at
-    129 (tools/compile_scaling.py --scene=csgpair)."""
+    class whose unrolled compile grows with every object."""
     members: Tuple      # ((obj_idx, ObjectIR), ...) in section order
     n_sph_sdf: int
     n_box_sdf: int
@@ -855,7 +736,7 @@ def _crowd_meta_cached(static, settings):
 
 def crowd_meta(static, settings):
     """(max(1,n), 6) int32 [leaf_slot0, obj_idx, mat_idx, shin_group,
-    leaf_slot1, node_pslot] — the SMEM side table every kernel body
+    leaf_slot1, node_pslot] — the side table every kernel body
     receives (row j = member j, singles first, then pair sections).
     slot1/pslot are 0 for single-leaf members (never read: sections are
     statically kinded). A (1,6) zero row stands in when there is no
@@ -865,8 +746,8 @@ def crowd_meta(static, settings):
 
 def _crowd_member(crowd_refs, j):
     """Member j's (leaf params 8-tuple, obj idx f32, mat idx, group f32),
-    all via dynamic scalar reads (SMEM refs in kernels, jnp arrays in the
-    twin)."""
+    all via dynamic scalar reads (kernel refs in kernels, jnp arrays in
+    the twin)."""
     cm, lpr, _ = crowd_refs
     slot = cm[j, 0]
     prm = tuple(lpr[slot, k] for k in range(8))
@@ -1014,27 +895,26 @@ def _crowd_trace(crowd, crowd_refs, o, d, t_start, settings,
                  steps: int, exit_margin: float, state):
     """Crowd section of trace_core: per-member bound entry + march with
     progressive clipping, merged exactly like the unrolled loop.
-    state/-> (t, obj, leaf, t_clip, unres)."""
-    def merge(carry, t_j, hit_j, un_j, obj_f):
-        t, obj, leaf, t_clip, unres = carry
+    state/-> (t, obj, leaf, t_clip)."""
+    def merge(carry, t_j, hit_j, obj_f):
+        t, obj, leaf, t_clip = carry
         better = (hit_j > F32(0.5)) & (t_j < t)
         t = jnp.where(better, t_j, t)
         obj = jnp.where(better, obj_f, obj)
         leaf = jnp.where(better, F32(0.0), leaf)
         t_clip = jnp.minimum(t_clip, t)
-        unres = jnp.maximum(unres, un_j)
-        return (t, obj, leaf, t_clip, unres)
+        return (t, obj, leaf, t_clip)
 
     def member(j, is_sphere, carry):
         prm, obj_f, _, _ = _crowd_member(crowd_refs, j)
         b = _crowd_bound(prm, is_sphere)
         sdf_j = _crowd_leaf_sdf(prm, is_sphere)
         t1, clip2 = _bound_entry(b, o, d, t_start, carry[3], exit_margin)
-        t_j, hit_j, un_j = _march(sdf_j, o, d, F32(0.0), clip2, steps,
-                                  settings.hit_eps, t_init=t1,
-                                  relax=settings.over_relax,
-                                  eps_scale=settings.hit_eps_scale)
-        return merge(carry, t_j, hit_j, un_j, obj_f)
+        t_j, hit_j = _march(sdf_j, o, d, F32(0.0), clip2, steps,
+                            settings.hit_eps, t_init=t1,
+                            relax=settings.over_relax,
+                            eps_scale=settings.hit_eps_scale)
+        return merge(carry, t_j, hit_j, obj_f)
 
     def member_pair(j, spec, carry):
         is_s0, is_s1, op = spec
@@ -1042,11 +922,11 @@ def _crowd_trace(crowd, crowd_refs, o, d, t_start, settings,
         b = _crowd_pair_bound(prm0, is_s0, prm1, is_s1, op, k)
         sdf_j = _crowd_pair_sdf(prm0, is_s0, prm1, is_s1, op, k)
         t1, clip2 = _bound_entry(b, o, d, t_start, carry[3], exit_margin)
-        t_j, hit_j, un_j = _march(sdf_j, o, d, F32(0.0), clip2, steps,
-                                  settings.hit_eps, t_init=t1,
-                                  relax=settings.over_relax,
-                                  eps_scale=settings.hit_eps_scale)
-        return merge(carry, t_j, hit_j, un_j, obj_f)
+        t_j, hit_j = _march(sdf_j, o, d, F32(0.0), clip2, steps,
+                            settings.hit_eps, t_init=t1,
+                            relax=settings.over_relax,
+                            eps_scale=settings.hit_eps_scale)
+        return merge(carry, t_j, hit_j, obj_f)
 
     state = _crowd_sections(crowd.sdf_ranges, member, state)
     return _crowd_sections(crowd.pair_ranges, member_pair, state)
@@ -1152,22 +1032,19 @@ def _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings, steps: int,
                     eps, eps_margin: float, state):
     """Crowd section of the hard-shadow path: per-member any-hit march
     with the segment skip + bound entry/exit clip (sphere/box covers are
-    exact — no iterated-DE envelope caveat). state/-> (vis, unres)."""
-    def march_occluder(b, sdf_j, carry):
-        vis, unres = carry
+    exact — no iterated-DE envelope caveat). state/-> vis."""
+    def march_occluder(b, sdf_j, vis):
         dist_j = jnp.where(vis <= F32(0.0), F32(0.0), dist)
         dseg = _seg_bound_dist(b, o, l, F32(eps), dist_j)
         dist_j = jnp.where(dseg > F32(eps_margin), F32(0.0), dist_j)
         t1, clip2 = _bound_entry(b, o, l, F32(eps) * jnp.ones_like(dist_j),
                                  dist_j, eps_margin)
-        t_s, hit_s, un_j = _march(sdf_j, o, l, F32(0.0), clip2, steps,
-                                  settings.hit_eps, t_init=t1,
-                                  relax=settings.over_relax,
-                                  eps_scale=settings.hit_eps_scale)
+        t_s, hit_s = _march(sdf_j, o, l, F32(0.0), clip2, steps,
+                            settings.hit_eps, t_init=t1,
+                            relax=settings.over_relax,
+                            eps_scale=settings.hit_eps_scale)
         occ = (hit_s > F32(0.5)) & (t_s < dist_j)
-        vis = vis * jnp.where(occ, F32(0.0), F32(1.0))
-        unres = jnp.maximum(unres, un_j)
-        return (vis, unres)
+        return vis * jnp.where(occ, F32(0.0), F32(1.0))
 
     def member(j, is_sphere, carry):
         prm, _, _, _ = _crowd_member(crowd_refs, j)
@@ -1184,11 +1061,9 @@ def _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings, steps: int,
     def member_analytic(j, is_sphere, carry):
         # exact any-hit, same interval arithmetic as intersect_analytic\'s
         # single-leaf fast path (engines/analytic.py)
-        vis, unres = carry
         prm, _, _, _ = _crowd_member(crowd_refs, j)
         t_j = _leaf_exact_t(prm, is_sphere, o, l, F32(eps), dist)
-        vis = vis * jnp.where(t_j < dist, F32(0.0), F32(1.0))
-        return (vis, unres)
+        return carry * jnp.where(t_j < dist, F32(0.0), F32(1.0))
 
     state = _crowd_sections(crowd.sdf_ranges, member, state)
     state = _crowd_sections(crowd.pair_ranges, member_pair, state)
@@ -1200,25 +1075,23 @@ def _crowd_soft_vis(crowd, crowd_refs, o, l, dist, settings, steps: int,
     """Crowd section of the soft-shadow path: spheres take the exact
     closed-form penumbra (zero march steps), boxes the influence-window
     march — the same per-kind strategy as the unrolled path.
-    state/-> (soft_vis, unres)."""
+    state/-> soft_vis."""
     tmin_s = F32(settings.soft_shadow_tmin)
 
-    def windowed_march(b, sdf_j, carry):
-        soft_vis, unres = carry
+    def windowed_march(b, sdf_j, soft_vis):
         dist_j = jnp.where(soft_vis <= F32(0.0), F32(0.0), dist)
         t_lo, t_hi = _influence_window(b, o, l, tmin_s, dist_j, kf)
-        v_j, un_j = _soft_march(sdf_j, o, l, settings.soft_shadow_tmin,
-                                jnp.minimum(dist_j, t_hi), kf, steps,
-                                t_init=jnp.maximum(t_lo, tmin_s),
-                                relax=settings.over_relax)
-        return (jnp.minimum(soft_vis, v_j), jnp.maximum(unres, un_j))
+        v_j = _soft_march(sdf_j, o, l, settings.soft_shadow_tmin,
+                          jnp.minimum(dist_j, t_hi), kf, steps,
+                          t_init=jnp.maximum(t_lo, tmin_s),
+                          relax=settings.over_relax)
+        return jnp.minimum(soft_vis, v_j)
 
     def member(j, is_sphere, carry):
         prm, _, _, _ = _crowd_member(crowd_refs, j)
         if is_sphere:
-            soft_vis, unres = carry
             v_j = _penumbra_sphere(prm, o, l, tmin_s, dist, kf)
-            return (jnp.minimum(soft_vis, v_j), unres)
+            return jnp.minimum(carry, v_j)
         return windowed_march(_crowd_bound(prm, False),
                               _crowd_leaf_sdf(prm, False), carry)
 
@@ -1280,21 +1153,10 @@ def _crowd_obj_set(crowd):
 # ---------------------------------------------------------------------------
 
 def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
-               t_min: float, t_max, t0=None, march_cap: int = 0,
-               crowd_refs=None):
-    """-> (t, obj_id i32, leaf_id i32, hit_f f32, unres_f f32).
-
-    t0 (optional, per-lane): a proven-safe march start from the cone
-    priming pass — no SDF surface lies before t0 along the ray. Analytic
-    objects are always intersected exactly over [t_min, t_max]; only the
-    SDF marches start at max(t_min, t0).
-
-    march_cap > 0 bounds every SDF march's step budget at march_cap
-    instead of settings.max_steps; lanes whose march was cut off are
-    flagged in unres_f so the caller can re-march exactly those at full
-    budget (the capped-march residual pass in _render_padded). With
-    march_cap=0, unres_f marks lanes that exhausted max_steps (the
-    ordinary sphere-trace truncation; treated as a miss everywhere)."""
+               t_min: float, t_max, crowd_refs=None):
+    """-> (t, obj_id f32, leaf_id f32, hit_f f32). Analytic objects are
+    intersected exactly over [t_min, t_max]; SDF objects are marched
+    from t_min, each clipped by the nearest hit so far."""
     analytic, sdf_objs, _mesh = _split(static)
     # mesh objects are intersected by the packet kernel (mesh_tile.py) and
     # merged by the caller; this core handles analytic + SDF only
@@ -1307,7 +1169,6 @@ def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
     t_a = jnp.full_like(o[0], BIG)
     obj = jnp.full_like(o[0], -1.0)
     leaf = jnp.zeros_like(o[0])
-    unres = jnp.zeros_like(o[0])
     for i, oir in analytic:
         t_i, leaf_i = intersect_analytic(oir, lp, o, d, t_min, t_max)
         better = t_i < t_a
@@ -1322,75 +1183,58 @@ def trace_core(static, settings: RenderSettings, lp, nparams, o, d,
             crowd, crowd_refs, o, d, t_min, t_max, (t_a, obj, leaf))
 
     t = t_a
+    steps = settings.max_steps
+    t_start = F32(t_min) * jnp.ones_like(o[0])
+    # the march can register a hit only while eps_eff-close to the
+    # object, i.e. inside its bound inflated by this margin — so
+    # clipping at that sphere's exit is value-exact. Derived from the
+    # ACTUAL clip distance (the t_max argument), not settings.t_max,
+    # so the soundness invariant holds for any caller-passed range.
+    exit_margin = settings.hit_eps + settings.hit_eps_scale * float(
+        max(t_max, settings.t_max))
     if crowd is not None and crowd.has_sdf:
-        steps = march_cap if march_cap > 0 else settings.max_steps
         t_clip = jnp.minimum(t_a, F32(t_max))
-        t_start = (F32(t_min) * jnp.ones_like(o[0]) if t0 is None
-                   else jnp.maximum(t0, F32(t_min)))
-        exit_margin = settings.hit_eps + settings.hit_eps_scale * float(
-            max(t_max, settings.t_max))
-        t, obj, leaf, t_clip_c, unres = _crowd_trace(
+        t, obj, leaf, _ = _crowd_trace(
             crowd, crowd_refs, o, d, t_start, settings, steps,
-            exit_margin, (t, obj, leaf, t_clip, unres))
+            exit_margin, (t, obj, leaf, t_clip))
     if sdf_objs:
         # Per-object marches with PROGRESSIVE clipping: cheap objects march
         # first; each subsequent object's march is clipped by the nearest
-        # hit so far (tiles occluded by a cheaper object never pay the
+        # hit so far (blocks occluded by a cheaper object never pay the
         # expensive tape), every march evaluates only its own object's
         # tape, and attribution is exact — no scene-min argmin.
         fast_fn = _fast_leaf_fn(settings)
         order = sorted(sdf_objs, key=lambda io: len(io[1].nodes))
-        steps = march_cap if march_cap > 0 else settings.max_steps
         # t here includes any crowd hits (t == t_a when no crowd ran), so
         # the unrolled marches are progressively clipped by both
         t_clip = jnp.minimum(t, F32(t_max))
-        t_start = (F32(t_min) * jnp.ones_like(o[0]) if t0 is None
-                   else jnp.maximum(t0, F32(t_min)))
-        # the march can register a hit only while eps_eff-close to the
-        # object, i.e. inside its bound inflated by this margin — so
-        # clipping at that sphere's exit is value-exact. Derived from the
-        # ACTUAL clip distance (the t_max argument), not settings.t_max,
-        # so the soundness invariant holds for any caller-passed range.
-        exit_margin = settings.hit_eps + settings.hit_eps_scale * float(
-            max(t_max, settings.t_max))
         for i, oir in order:
             sdf_i = (lambda oir=oir: lambda p: eval_sdf(
                 oir, lp, nparams, p, leaf_fn=fast_fn))()
+            park_i = _park_point(oir, lp)
             # every boundable object gets the closed-form sphere
             # entry/exit (see _bound_entry); unboundable ones (plane
             # leaves) march from t_start directly
             b_i = _object_bound(oir, lp, nparams, cover_margin=exit_margin)
-            park_i = _park_point(oir, lp)
-            shell_i = _bulb_entry_shell(oir, lp, exit_margin)
-
-            def run_march(o_s, d_s, clip_s, t0_s, sdf_i=sdf_i, b_i=b_i,
-                          park_i=park_i, shell_i=shell_i):
-                if b_i is not None:
-                    t1, clip2 = _bound_entry(b_i, o_s, d_s, t0_s, clip_s,
-                                             exit_margin, shell=shell_i)
-                    return _march(sdf_i, o_s, d_s, F32(0.0), clip2,
-                                  steps, settings.hit_eps, t_init=t1,
-                                  relax=settings.over_relax,
-                                  eps_scale=settings.hit_eps_scale,
-                                  park=park_i)
-                return _march(sdf_i, o_s, d_s, F32(0.0), clip_s,
-                              steps, settings.hit_eps, t_init=t0_s,
-                              relax=settings.over_relax,
-                              eps_scale=settings.hit_eps_scale,
-                              park=park_i)
-
-            t_i, hit_i, un_i = _by_subtile(run_march, 3,
-                                           settings.subtile_rows,
-                                           o, d, t_clip, t_start)
+            if b_i is not None:
+                t1, clip2 = _bound_entry(
+                    b_i, o, d, t_start, t_clip, exit_margin,
+                    shell=_bulb_entry_shell(oir, lp, exit_margin))
+            else:
+                t1, clip2 = t_start, t_clip
+            t_i, hit_i = _march(sdf_i, o, d, F32(0.0), clip2, steps,
+                                settings.hit_eps, t_init=t1,
+                                relax=settings.over_relax,
+                                eps_scale=settings.hit_eps_scale,
+                                park=park_i)
             better = (hit_i > F32(0.5)) & (t_i < t)
             t = jnp.where(better, t_i, t)
             obj = jnp.where(better, F32(float(i)), obj)
             leaf = jnp.where(better, F32(0.0), leaf)
             t_clip = jnp.minimum(t_clip, t)
-            unres = jnp.maximum(unres, un_i)
 
     hit_f = jnp.where(t < BIG * F32(0.5), F32(1.0), F32(0.0))
-    return t, obj, leaf, hit_f, unres
+    return t, obj, leaf, hit_f
 
 
 def normals_core(static, settings: RenderSettings, lp, nparams, p, obj, leaf,
@@ -1565,18 +1409,8 @@ def _seg_bound_dist(b, o, l, t_lo, dist):
 
 
 def visibility_core(static, settings: RenderSettings, lp, nparams,
-                    o, l, dist, soft_k=None, march_cap: int = 0,
-                    crowd_refs=None):
+                    o, l, dist, soft_k=None, crowd_refs=None):
     """Shadow visibility for a batch of secondary rays (re-entry path).
-    -> (vis, unres_f).
-
-    march_cap > 0 bounds every shadow march at march_cap steps instead
-    of settings.shadow_steps (soft) / settings.max_steps (hard);
-    unres_f flags lanes still marching when the budget ran out, so the
-    caller can re-trace exactly those at full budget. Re-tracing a lane
-    that resolved within the cap reproduces its result bit-for-bit (the
-    march is deterministic and the budget only extends), so the capped
-    pass + residual pass together equal the uncapped pass.
 
     soft_k: per-ray penumbra sharpness (area lights: dist/radius); None
     falls back to the global settings.soft_shadow_k.
@@ -1613,13 +1447,11 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
         kf = k if hasattr(k, "shape") else F32(k)
         t0 = F32(settings.soft_shadow_tmin)
         lod_fn = _lod_leaf_fn(settings) or _fast_leaf_fn(settings)
-        steps = march_cap if march_cap > 0 else settings.shadow_steps
+        steps = settings.shadow_steps
         soft_vis = jnp.ones_like(o[0])
-        unres = jnp.zeros_like(o[0])
         if crowd is not None:
-            soft_vis, unres = _crowd_soft_vis(
-                crowd, crowd_refs, o, l, dist, settings, steps, kf,
-                (soft_vis, unres))
+            soft_vis = _crowd_soft_vis(crowd, crowd_refs, o, l, dist,
+                                       settings, steps, kf, soft_vis)
         for i, oir in nonmesh:
             cf = _single_leaf_closed_form(oir)
             if cf is not None:
@@ -1641,33 +1473,25 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
             if b is not None:
                 # march only the influence window (value-exact skip)
                 t_lo, t_hi = _influence_window(b, o, l, t0, dist_i, kf)
-                v_i, un_i = _soft_march(sdf_i, o, l,
-                                        settings.soft_shadow_tmin,
-                                        jnp.minimum(dist_i, t_hi), k,
-                                        steps,
-                                        t_init=jnp.maximum(t_lo, tmin_s),
-                                        relax=settings.over_relax,
-                                        park=park_i)
+                v_i = _soft_march(sdf_i, o, l, settings.soft_shadow_tmin,
+                                  jnp.minimum(dist_i, t_hi), k, steps,
+                                  t_init=jnp.maximum(t_lo, tmin_s),
+                                  relax=settings.over_relax, park=park_i)
             else:
-                v_i, un_i = _soft_march(sdf_i, o, l,
-                                        settings.soft_shadow_tmin,
-                                        dist_i, k, steps,
-                                        relax=settings.over_relax,
-                                        park=park_i)
+                v_i = _soft_march(sdf_i, o, l, settings.soft_shadow_tmin,
+                                  dist_i, k, steps,
+                                  relax=settings.over_relax, park=park_i)
             soft_vis = jnp.minimum(soft_vis, v_i)
-            unres = jnp.maximum(unres, un_i)
-        return vis * soft_vis, unres
-    steps = march_cap if march_cap > 0 else settings.max_steps
-    unres = jnp.zeros_like(o[0])
+        return vis * soft_vis
+    steps = settings.max_steps
     for _, oir in analytic:
         t_i, _ = intersect_analytic(oir, lp, o, l, eps, dist)
         vis = vis * jnp.where(t_i < dist, F32(0.0), F32(1.0))
     if crowd is not None:
         eps_margin = settings.hit_eps + settings.hit_eps_scale * float(
             settings.t_max)
-        vis, unres = _crowd_hard_vis(crowd, crowd_refs, o, l, dist,
-                                     settings, steps, eps, eps_margin,
-                                     (vis, unres))
+        vis = _crowd_hard_vis(crowd, crowd_refs, o, l, dist, settings,
+                              steps, eps, eps_margin, vis)
     if sdf_objs:
         # per-object any-hit marches; occluded lanes skip later objects
         order = sorted(sdf_objs, key=lambda io: len(io[1].nodes))
@@ -1700,22 +1524,20 @@ def visibility_core(static, settings: RenderSettings, lp, nparams,
                 t1, clip2 = _bound_entry(b, o, l,
                                          F32(eps) * jnp.ones_like(dist_i),
                                          dist_i, eps_margin)
-                t_s, hit_s, un_i = _march(sdf_i, o, l, F32(0.0), clip2,
-                                          steps, settings.hit_eps,
-                                          t_init=t1,
-                                          relax=settings.over_relax,
-                                          eps_scale=settings.hit_eps_scale,
-                                          park=park_i)
+                t_s, hit_s = _march(sdf_i, o, l, F32(0.0), clip2, steps,
+                                    settings.hit_eps, t_init=t1,
+                                    relax=settings.over_relax,
+                                    eps_scale=settings.hit_eps_scale,
+                                    park=park_i)
             else:
-                t_s, hit_s, un_i = _march(sdf_i, o, l, eps, dist_i,
-                                          steps, settings.hit_eps,
-                                          relax=settings.over_relax,
-                                          eps_scale=settings.hit_eps_scale,
-                                          park=park_i)
+                t_s, hit_s = _march(sdf_i, o, l, eps, dist_i, steps,
+                                    settings.hit_eps,
+                                    relax=settings.over_relax,
+                                    eps_scale=settings.hit_eps_scale,
+                                    park=park_i)
             occ = (hit_s > F32(0.5)) & (t_s < dist_i)
             vis = vis * jnp.where(occ, F32(0.0), F32(1.0))
-            unres = jnp.maximum(unres, un_i)
-    return vis, unres
+    return vis
 
 
 def _soft_march(sdf_fn, o, d, t_start, t_max, k, steps: int,
@@ -1795,10 +1617,9 @@ def _soft_march(sdf_fn, o, d, t_start, t_max, k, steps: int,
                                                     st_prev, done)
         return i + unroll, t, res, h_prev, st_prev, done
 
-    _, _, res, _, _, done = jax.lax.while_loop(
+    _, _, res, _, _, _ = jax.lax.while_loop(
         cond, body, (0, t0, res0, z0, z0, done0))
-    return (jnp.minimum(jnp.maximum(res, F32(0.0)), F32(1.0)),
-            F32(1.0) - done)
+    return jnp.minimum(jnp.maximum(res, F32(0.0)), F32(1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -1888,20 +1709,17 @@ def _ao_compute(static, settings, lp, nparams, p, n,
                               settings.ao_strength)
 
 
-def _k1_body(static, settings, n_leaves, n_nodes, march_cap,
+def _k1_body(static, settings, n_leaves, n_nodes,
              lp_ref, np_ref, cm_ref,
-             ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, t0_ref,
-             t_ref, obj_ref, nx_ref, ny_ref, nz_ref, ao_ref, hit_ref,
-             unres_ref):
+             ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
+             t_ref, obj_ref, nx_ref, ny_ref, nz_ref, ao_ref, hit_ref):
     lp, nparams = _read_params(lp_ref, np_ref, n_leaves, n_nodes)
     crowd_refs = (cm_ref, lp_ref, np_ref)
-    o = (ox_ref[:], oy_ref[:], oz_ref[:])
-    d = (dx_ref[:], dy_ref[:], dz_ref[:])
-    t, obj, leaf, hit_f, unres = trace_core(static, settings, lp, nparams,
-                                            o, d, settings.t_min,
-                                            settings.t_max, t0=t0_ref[:],
-                                            march_cap=march_cap,
-                                            crowd_refs=crowd_refs)
+    o = (ox_ref[...], oy_ref[...], oz_ref[...])
+    d = (dx_ref[...], dy_ref[...], dz_ref[...])
+    t, obj, leaf, hit_f = trace_core(static, settings, lp, nparams, o, d,
+                                     settings.t_min, settings.t_max,
+                                     crowd_refs=crowd_refs)
     t_sane = jnp.where(hit_f > F32(0.5), t, F32(0.0))
     p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
     n = normals_core(static, settings, lp, nparams, p, obj, leaf, d,
@@ -1917,14 +1735,13 @@ def _k1_body(static, settings, n_leaves, n_nodes, march_cap,
     else:
         ao = jnp.ones_like(p[0])
 
-    t_ref[:] = t
-    obj_ref[:] = obj
-    nx_ref[:] = n[0]
-    ny_ref[:] = n[1]
-    nz_ref[:] = n[2]
-    ao_ref[:] = ao
-    hit_ref[:] = hit_f
-    unres_ref[:] = unres
+    t_ref[...] = t
+    obj_ref[...] = obj
+    nx_ref[...] = n[0]
+    ny_ref[...] = n[1]
+    nz_ref[...] = n[2]
+    ao_ref[...] = ao
+    hit_ref[...] = hit_f
 
 
 def _ao_fix_body(static, settings, n_leaves, n_nodes,
@@ -1933,12 +1750,12 @@ def _ao_fix_body(static, settings, n_leaves, n_nodes,
                  need_ref, ao_in_ref, ao_ref):
     """AO at externally-supplied (pre-offset) receivers — used to fix up
     mesh-hit lanes after the mesh merge so pallas == jnp == golden on
-    mesh+SDF+AO scenes. Tiles with no needing lane pass ao through."""
+    mesh+SDF+AO scenes. Blocks with no needing lane pass ao through."""
     lp, nparams = _read_params(lp_ref, np_ref, n_leaves, n_nodes)
-    p = (px_ref[:], py_ref[:], pz_ref[:])
-    n = (nx_ref[:], ny_ref[:], nz_ref[:])
-    need = need_ref[:]
-    ao_in = ao_in_ref[:]
+    p = (px_ref[...], py_ref[...], pz_ref[...])
+    n = (nx_ref[...], ny_ref[...], nz_ref[...])
+    need = need_ref[...]
+    ao_in = ao_in_ref[...]
 
     def compute():
         ao_new = _ao_compute(static, settings, lp, nparams, p, n,
@@ -1946,135 +1763,131 @@ def _ao_fix_body(static, settings, n_leaves, n_nodes,
                              crowd_refs=(cm_ref, lp_ref, np_ref))
         return jnp.where(need > F32(0.5), ao_new, ao_in)
 
-    ao_ref[:] = jax.lax.cond(jnp.max(need) > F32(0.5), compute,
-                             lambda: ao_in)
+    ao_ref[...] = jax.lax.cond(jnp.max(need) > F32(0.5), compute,
+                               lambda: ao_in)
+
+
+def _k2_body(static, settings, n_leaves, n_nodes,
+             lp_ref, np_ref, cm_ref,
+             ox_ref, oy_ref, oz_ref, lx_ref, ly_ref, lz_ref, dist_ref,
+             k_ref, vis_ref):
+    lp, nparams = _read_params(lp_ref, np_ref, n_leaves, n_nodes)
+    o = (ox_ref[...], oy_ref[...], oz_ref[...])
+    l = (lx_ref[...], ly_ref[...], lz_ref[...])
+    vis_ref[...] = visibility_core(static, settings, lp, nparams, o, l,
+                                   dist_ref[...], soft_k=k_ref[...],
+                                   crowd_refs=(cm_ref, lp_ref, np_ref))
+
+
+def _ray_specs(n_arrays: int, rows: int):
+    return [pl.BlockSpec((rows, LANES), lambda i: (i, 0))
+            for _ in range(n_arrays)]
+
+
+def _whole_specs(n_arrays: int):
+    """Small tables (scene params, crowd meta, cameras, lights,
+    materials) passed whole to every block and read by scalar loads."""
+    return [pl.BlockSpec() for _ in range(n_arrays)]
+
+
+def _ray_call(body, static, settings, leaf_params, node_params, rays,
+              n_out: int):
+    """One program per tile_rows x 128 block of (rows_total, 128) rays;
+    body gets (leaf params, node params, crowd meta, *rays, *outputs)."""
+    rows_total = rays[0].shape[0]
+    R = settings.tile_rows
+    n_leaves = max(static.ir.n_leaves, 1)
+    n_nodes = node_params.shape[0]
+    shp = jax.ShapeDtypeStruct((rows_total, LANES), jnp.float32)
+    return _pallas(
+        functools.partial(body, static, settings, n_leaves, n_nodes),
+        grid=(rows_total // R,),
+        in_specs=_whole_specs(3) + _ray_specs(len(rays), R),
+        out_specs=tuple(_ray_specs(n_out, R)),
+        out_shape=(shp,) * n_out, tile_rows=R,
+    )(leaf_params, node_params, crowd_meta(static, settings), *rays)
 
 
 @functools.partial(jax.jit, static_argnums=(0, 1))
 def ao_fix_kernel(static, settings: RenderSettings, leaf_params,
                   node_params, p_off, n, need, ao_in):
     """Recompute AO for `need` lanes at pre-offset receivers p_off."""
-    rows_total = p_off[0].shape[0]
-    R = settings.tile_rows
-    grid = (rows_total // R,)
-    ir = static.ir
-    n_leaves = max(ir.n_leaves, 1)
-    n_nodes = node_params.shape[0]
-    body = functools.partial(_ao_fix_body, static, settings, n_leaves,
-                             n_nodes)
-    shp = jax.ShapeDtypeStruct((rows_total, LANES), jnp.float32)
-    return pl.pallas_call(
-        body,
-        out_shape=shp,
-        grid=grid,
-        in_specs=_param_specs() + _ray_specs(8, R),
-        out_specs=_ray_specs(1, R)[0],
-        interpret=_interpret(),
-    )(leaf_params, node_params, crowd_meta(static, settings),
-      p_off[0], p_off[1], p_off[2], n[0], n[1], n[2], need, ao_in)
+    ao, = _ray_call(_ao_fix_body, static, settings, leaf_params,
+                    node_params, (*p_off, *n, need, ao_in), 1)
+    return ao
 
 
-def _k2_body(static, settings, n_leaves, n_nodes, march_cap,
-             lp_ref, np_ref, cm_ref,
-             ox_ref, oy_ref, oz_ref, lx_ref, ly_ref, lz_ref, dist_ref,
-             k_ref, vis_ref, unres_ref):
-    lp, nparams = _read_params(lp_ref, np_ref, n_leaves, n_nodes)
-    o = (ox_ref[:], oy_ref[:], oz_ref[:])
-    l = (lx_ref[:], ly_ref[:], lz_ref[:])
-    vis, unres = visibility_core(static, settings, lp, nparams, o, l,
-                                 dist_ref[:], soft_k=k_ref[:],
-                                 march_cap=march_cap,
-                                 crowd_refs=(cm_ref, lp_ref, np_ref))
-    vis_ref[:] = vis
-    unres_ref[:] = unres
-
-
-def _ray_specs(n_arrays: int, rows: int):
-    return [pl.BlockSpec((rows, LANES), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM) for _ in range(n_arrays)]
-
-
-def _param_specs():
-    # leaf_params, node_params, crowd meta (see crowd_meta) — all SMEM
-    return [pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM)]
-
-
-@functools.partial(jax.jit, static_argnums=(0, 1, 2))
-def render_tile_kernel(static, settings: RenderSettings, march_cap: int,
-                       leaf_params, node_params, o, d, t0=None):
+@functools.partial(jax.jit, static_argnums=(0, 1))
+def render_tile_kernel(static, settings: RenderSettings, leaf_params,
+                       node_params, o, d):
     """K1 over a padded (rows_total, 128) ray grid.
-
-    t0: optional per-lane primed march start (see _prime_march).
-    march_cap: SDF-march step budget override (0 = settings.max_steps);
-    the unres output flags lanes cut off by it (see trace_core)."""
-    rows_total = o[0].shape[0]
-    R = settings.tile_rows
-    grid = (rows_total // R,)
-    ir = static.ir
-    n_leaves = max(ir.n_leaves, 1)
-    n_nodes = node_params.shape[0]
-    if t0 is None:
-        t0 = jnp.zeros_like(o[0])
-    body = functools.partial(_k1_body, static, settings, n_leaves, n_nodes,
-                             march_cap)
-    shp = jax.ShapeDtypeStruct((rows_total, LANES), jnp.float32)
-    out = pl.pallas_call(
-        body,
-        out_shape=(shp,) * 8,
-        grid=grid,
-        in_specs=_param_specs() + _ray_specs(7, R),
-        out_specs=tuple(_ray_specs(8, R)),
-        interpret=_interpret(),
-    )(leaf_params, node_params, crowd_meta(static, settings),
-      o[0], o[1], o[2], d[0], d[1], d[2], t0)
-    t, obj, nx, ny, nz, ao, hit_f, unres = out
-    return t, obj, (nx, ny, nz), ao, hit_f, unres
+    -> (t, obj, (nx, ny, nz), ao, hit_f)."""
+    t, obj, nx, ny, nz, ao, hit_f = _ray_call(
+        _k1_body, static, settings, leaf_params, node_params, (*o, *d), 7)
+    return t, obj, (nx, ny, nz), ao, hit_f
 
 
-@functools.partial(jax.jit, static_argnums=(0, 1, 2))
-def trace_rays_kernel(static, settings: RenderSettings, march_cap: int,
-                      leaf_params, node_params, o, l, dist, soft_k):
-    """K2: batched secondary-ray visibility (same intersection core).
-    -> (vis, unres) — see visibility_core for march_cap semantics."""
-    rows_total = o[0].shape[0]
-    R = settings.tile_rows
-    grid = (rows_total // R,)
-    ir = static.ir
-    n_leaves = max(ir.n_leaves, 1)
-    n_nodes = node_params.shape[0]
-    body = functools.partial(_k2_body, static, settings, n_leaves, n_nodes,
-                             march_cap)
-    shp = jax.ShapeDtypeStruct((rows_total, LANES), jnp.float32)
-    vis, unres = pl.pallas_call(
-        body,
-        out_shape=(shp, shp),
-        grid=grid,
-        in_specs=_param_specs() + _ray_specs(8, R),
-        out_specs=tuple(_ray_specs(2, R)),
-        interpret=_interpret(),
-    )(leaf_params, node_params, crowd_meta(static, settings),
-      o[0], o[1], o[2], l[0], l[1], l[2], dist, soft_k)
-    return vis, unres
+@functools.partial(jax.jit, static_argnums=(0, 1))
+def trace_rays_kernel(static, settings: RenderSettings, leaf_params,
+                      node_params, o, l, dist, soft_k):
+    """K2: batched secondary-ray visibility (same intersection core)."""
+    vis, = _ray_call(_k2_body, static, settings, leaf_params, node_params,
+                     (*o, *l, dist, soft_k), 1)
+    return vis
 
 
 # ---------------------------------------------------------------------------
-# KF: the fused mesh-free frame megakernel. One pallas_call renders the
-# whole frame: per-tile ray generation from program_id (no ray arrays in
-# HBM at all), primary trace, normals, AO, per-light shadow visibility
+# KF: the fused mesh-free frame kernel. One pallas_call renders F frames:
+# per-block ray generation from program_id (no ray arrays in device
+# memory at all), primary trace, normals, AO, per-light shadow visibility
 # and Blinn-Phong shading — the K1 -> XLA glue -> K2 -> XLA shade
-# pipeline collapses into straight-line VMEM-resident code. Scene,
-# camera, light and material scalars all ride SMEM. Exact same cores
+# pipeline collapses into one pass over registers. Exact same cores
 # (trace_core / normals_core / _ao_compute / visibility_core /
 # shade_object) as the split path, so parity is structural.
 # ---------------------------------------------------------------------------
 
 
-def _kframe_body(static, settings, n_leaves, n_nodes, intr, tx_tiles,
-                 tiles_per_frame,
+def tile_shape(tile_rows: int) -> Tuple[int, int]:
+    """(rows, cols) of the pixel patch one tile_rows x 128 block covers;
+    the block's rays are that patch in row-major order."""
+    return tile_rows * LANES // TILE_W, TILE_W
+
+
+class FrameTiles(NamedTuple):
+    """Padded tiling of an H x W frame into tile patches."""
+    th: int   # patch rows
+    tw: int   # patch cols
+    ty: int   # patches down
+    tx: int   # patches across
+    R: int    # block rows of 128 rays
+
+    @property
+    def rows_total(self):
+        return self.ty * self.tx * self.R
+
+    def tile(self, a):
+        """(ty*th, tx*tw) image -> (rows_total, 128) block layout."""
+        return (a.reshape(self.ty, self.th, self.tx, self.tw)
+                .transpose(0, 2, 1, 3).reshape(self.rows_total, LANES))
+
+    def untile(self, a, H: int, W: int):
+        """(..., rows_total, 128) block layout -> (..., H, W) image."""
+        lead = a.shape[:-2]
+        a = a.reshape(lead + (self.ty, self.tx, self.th, self.tw))
+        n = len(lead)
+        a = jnp.moveaxis(a, n + 2, n + 1)
+        return a.reshape(lead + (self.ty * self.th, self.tx * self.tw))[
+            ..., :H, :W]
+
+
+def frame_tiles(intr, tile_rows: int) -> FrameTiles:
+    th, tw = tile_shape(tile_rows)
+    return FrameTiles(th, tw, -(-intr.height // th), -(-intr.width // tw),
+                      tile_rows)
+
+
+def _kframe_body(static, settings, n_leaves, n_nodes, intr, tiles,
                  lp_ref, np_ref, cm_ref, cam_ref, li_ref, mat_ref, amb_ref,
-                 t0_ref,
                  r_ref, g_ref, b_ref, t_ref, obj_ref,
                  nx_ref, ny_ref, nz_ref, hit_ref):
     from surfjax.core.math import vnormalize
@@ -2082,24 +1895,24 @@ def _kframe_body(static, settings, n_leaves, n_nodes, intr, tx_tiles,
     lp, nparams = _read_params(lp_ref, np_ref, n_leaves, n_nodes)
     crowd_refs = (cm_ref, lp_ref, np_ref)
     crowd, _, _ = split_crowd(static, settings)
-    R = r_ref.shape[0]
+    R = tiles.R
 
     # ray generation from the grid index (exact same arithmetic as
     # core/camera.py::camera_ray_dirs_dyn on the edge-clamped pixel grid
-    # the XLA tile_layout builds). The grid covers F frames x tiles;
-    # each frame reads its own camera row from SMEM.
+    # FrameTiles.tile builds). The grid covers F frames x patches; each
+    # frame reads its own camera row.
     gidx = pl.program_id(0)
-    frame = gidx // tiles_per_frame
-    local = gidx % tiles_per_frame
-    row0 = ((local // tx_tiles) * R).astype(jnp.float32)
-    col0 = ((local % tx_tiles) * LANES).astype(jnp.float32)
-    # Mosaic iota is integer-only; widen to f32 after
-    ii = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 0).astype(
-        jnp.float32)
-    jj = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 1).astype(
-        jnp.float32)
-    rr = jnp.minimum(row0 + ii, F32(intr.height - 1))
-    cc = jnp.minimum(col0 + jj, F32(intr.width - 1))
+    per_frame = tiles.ty * tiles.tx
+    frame = gidx // per_frame
+    local = gidx % per_frame
+    row0 = (local // tiles.tx) * tiles.th
+    col0 = (local % tiles.tx) * tiles.tw
+    k = (jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 0) * LANES
+         + jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 1))
+    rr = jnp.minimum((row0 + k // tiles.tw).astype(jnp.float32),
+                     F32(intr.height - 1))
+    cc = jnp.minimum((col0 + k % tiles.tw).astype(jnp.float32),
+                     F32(intr.width - 1))
     xc = (cc + F32(0.5) - F32(intr.cx)) / F32(intr.fx)
     yc = (rr + F32(0.5) - F32(intr.cy)) / F32(intr.fy)
     dxd = (cam_ref[frame, 0] * xc + cam_ref[frame, 1] * yc) \
@@ -2113,10 +1926,9 @@ def _kframe_body(static, settings, n_leaves, n_nodes, intr, tx_tiles,
     o = (zeros + cam_ref[frame, 9], zeros + cam_ref[frame, 10],
          zeros + cam_ref[frame, 11])
 
-    t, obj, leaf, hit_f, _ = trace_core(static, settings, lp, nparams,
-                                        o, d, settings.t_min,
-                                        settings.t_max, t0=t0_ref[:],
-                                        crowd_refs=crowd_refs)
+    t, obj, leaf, hit_f = trace_core(static, settings, lp, nparams, o, d,
+                                     settings.t_min, settings.t_max,
+                                     crowd_refs=crowd_refs)
     t_sane = jnp.where(hit_f > F32(0.5), t, F32(0.0))
     p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
     n = normals_core(static, settings, lp, nparams, p, obj, leaf, d,
@@ -2152,9 +1964,9 @@ def _kframe_body(static, settings, n_leaves, n_nodes, intr, tx_tiles,
                                jnp.full_like(dist,
                                              settings.soft_shadow_k))
             dist_eff = jnp.where(hit_f > F32(0.5), dist, F32(0.0))
-            vis, _ = visibility_core(static, settings, lp, nparams,
-                                     p_off, l, dist_eff, soft_k=soft_k,
-                                     crowd_refs=crowd_refs)
+            vis = visibility_core(static, settings, lp, nparams, p_off, l,
+                                  dist_eff, soft_k=soft_k,
+                                  crowd_refs=crowd_refs)
         else:
             vis = jnp.ones_like(p_off[0])
         light_terms.append((l, lcol, vis))
@@ -2181,54 +1993,45 @@ def _kframe_body(static, settings, n_leaves, n_nodes, intr, tx_tiles,
         r, g, b = _crowd_shade(crowd, crowd_refs, mat_ref, obj, hit_mask,
                                ambient, ao, n, v, light_terms, (r, g, b))
 
-    r_ref[:] = r
-    g_ref[:] = g
-    b_ref[:] = b
-    t_ref[:] = t_sane
-    obj_ref[:] = obj
-    nx_ref[:] = n[0]
-    ny_ref[:] = n[1]
-    nz_ref[:] = n[2]
-    hit_ref[:] = hit_f
+    r_ref[...] = r
+    g_ref[...] = g
+    b_ref[...] = b
+    t_ref[...] = t_sane
+    obj_ref[...] = obj
+    nx_ref[...] = n[0]
+    ny_ref[...] = n[1]
+    nz_ref[...] = n[2]
+    hit_ref[...] = hit_f
 
 
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3))
+@functools.partial(jax.jit, static_argnums=(0, 1, 2))
 def frame_fused_kernel(static, settings: RenderSettings, intr,
-                       tx_tiles: int, leaf_params, node_params, cam_rows,
-                       lights, materials, ambient, t0):
-    """KF over F frames x the padded tiled pixel grid, ONE pallas call.
+                       leaf_params, node_params, cam_rows, lights,
+                       materials, ambient):
+    """KF over F frames x the padded patch grid, ONE pallas call.
 
     cam_rows: (F, 12) [R_flat(9), pos(3)] per frame — the whole
     animated-path workload (BASELINE.json:11) runs as a single grid of
-    F * tiles_per_frame steps, so per-frame dispatch/scan overhead
-    vanishes. t0: (F * rows_total, 128) primed march starts (zeros when
-    priming is off). Inputs/outputs stay in the contiguous
-    (rows, 128) tile layout — a (tile_rows, 128) f32 block is one
-    contiguous 32 KB DMA. (The image-layout alternative, blocks indexed
-    straight into an (H2, W2) array, was measured 2 ms SLOWER at 1080p:
-    every block row becomes a 512 B strided DMA segment.) Returns
-    (r, g, b, t, obj, nx, ny, nz, hit_f), each (F * rows_total, 128)."""
-    rows_all = t0.shape[0]
+    F * patches programs, so per-frame dispatch/scan overhead vanishes.
+    Returns (r, g, b, t, obj, nx, ny, nz, hit_f), each
+    (F * rows_total, 128) in FrameTiles block layout."""
+    tiles = frame_tiles(intr, settings.tile_rows)
     F = cam_rows.shape[0]
     R = settings.tile_rows
-    grid = (rows_all // R,)
-    tiles_per_frame = (rows_all // F) // R
-    ir = static.ir
-    n_leaves = max(ir.n_leaves, 1)
+    rows_all = F * tiles.rows_total
+    n_leaves = max(static.ir.n_leaves, 1)
     n_nodes = node_params.shape[0]
     body = functools.partial(_kframe_body, static, settings, n_leaves,
-                             n_nodes, intr, tx_tiles, tiles_per_frame)
+                             n_nodes, intr, tiles)
     shp = jax.ShapeDtypeStruct((rows_all, LANES), jnp.float32)
-    smem = [pl.BlockSpec(memory_space=pltpu.SMEM) for _ in range(4)]
-    return pl.pallas_call(
+    return _pallas(
         body,
-        out_shape=(shp,) * 9,
-        grid=grid,
-        in_specs=_param_specs() + smem + _ray_specs(1, R),
+        grid=(rows_all // R,),
+        in_specs=_whole_specs(7),
         out_specs=tuple(_ray_specs(9, R)),
-        interpret=_interpret(),
+        out_shape=(shp,) * 9, tile_rows=R,
     )(leaf_params, node_params, crowd_meta(static, settings), cam_rows,
-      lights, materials, ambient, t0)
+      lights, materials, ambient)
 
 
 # ---------------------------------------------------------------------------
@@ -2236,17 +2039,16 @@ def frame_fused_kernel(static, settings: RenderSettings, intr,
 # ---------------------------------------------------------------------------
 
 def scene_march_twin(static, settings: RenderSettings, leaf_params,
-                     node_params, o, d, t0=None):
+                     node_params, o, d):
     """Pure-jnp twin of K1 on flat rays (no tiling, no Pallas)."""
     lp = leaf_params
     nparams = node_params
     # the twin mirrors the crowd path too (dynamic reads hit jnp arrays
-    # instead of SMEM refs — same indices, same arithmetic)
+    # instead of kernel refs — same indices, same arithmetic)
     crowd_refs = (crowd_meta(static, settings), leaf_params, node_params)
-    t, obj, leaf, hit_f, _ = trace_core(static, settings, lp, nparams,
-                                        o, d, settings.t_min,
-                                        settings.t_max, t0=t0,
-                                        crowd_refs=crowd_refs)
+    t, obj, leaf, hit_f = trace_core(static, settings, lp, nparams, o, d,
+                                     settings.t_min, settings.t_max,
+                                     crowd_refs=crowd_refs)
     t_sane = jnp.where(hit_f > F32(0.5), t, F32(0.0))
     p = (o[0] + t_sane * d[0], o[1] + t_sane * d[1], o[2] + t_sane * d[2])
     n = normals_core(static, settings, lp, nparams, p, obj, leaf, d,
@@ -2261,101 +2063,21 @@ def scene_march_twin(static, settings: RenderSettings, leaf_params,
 
 
 # ---------------------------------------------------------------------------
-# Capped-march residual pass: the EP-analogue ray re-scheduling from
-# SURVEY §2.2, done TPU-style. A full device sort of rays costs ~240 ms
-# on TPU v5e and lane-granularity scatter ~47 ms — both non-starters —
-# but contiguous (8,128)-block gathers are cheap, so pass A runs every
-# march with a small step cap (bounding each tile's while-loop at cap
-# steps instead of its worst lane's crawl) and only blocks holding a
-# cut-off lane are gathered, re-run at full budget, and scattered back.
-# Deterministic marches make this exact: re-running a resolved lane with
-# a larger budget reproduces its result bit-for-bit (verified bitwise in
-# tests/test_kernels.py).
-#
-# MEASURED NEGATIVE on the c3 flagship (1080p, TPU v5e, r2): divergent
-# lanes trace the fractal silhouette, a long curve that crosses 26% of
-# the (8,128) blocks at cap=32 (49% at 16, 7% at 48) — so the residual
-# re-marches a quarter of the frame at full cost on top of the capped
-# pass, and every sweep point lost 3-18 ms vs the plain tile path
-# (35.3 ms baseline; mc=32: 48.4, mc=48: 38.7, sc=16: 38.7). The caps
-# therefore DEFAULT OFF; the machinery stays because it is exact, tested
-# and the right shape for scenes whose expensive lanes cluster spatially
-# (many small objects) rather than along a global silhouette.
-# ---------------------------------------------------------------------------
-
-RESID_BLOCK_ROWS = 8   # residual compaction granularity ((8,128) blocks)
-RESID_CAP_FRAC = 4     # residual capacity = ceil(NB/4) blocks
-
-
-def _block_residual(unres, ins, outs, kernel_fn, tile_rows: int):
-    """Re-run kernel_fn at full budget on the (RESID_BLOCK_ROWS, 128)
-    blocks flagged by unres, overwriting those blocks of outs.
-
-    ins / outs: (rows_total, 128) arrays (kernel inputs / capped-pass
-    outputs). kernel_fn(list_of_ins) -> list_of_outs on any row-multiple
-    of tile_rows. If the flagged blocks exceed the residual capacity,
-    falls back to kernel_fn on the whole frame — correctness never
-    depends on the capacity, only the fast path's size does."""
-    rows_total = unres.shape[0]
-    BR = RESID_BLOCK_ROWS
-    tpb = max(tile_rows // BR, 1)          # blocks per kernel tile
-    NB = rows_total // BR
-    cap_blocks = -(-NB // RESID_CAP_FRAC)  # ceil(NB / frac)
-    M = -(-cap_blocks // tpb) * tpb        # ceil to a whole kernel tile
-    if (tile_rows % BR or rows_total % (BR * tpb) or NB <= M):
-        # tile_rows must be a whole number of blocks, or M * BR rows
-        # would not tile evenly and the residual kernel would leave
-        # uninitialized output to scatter back; tiny frames save
-        # nothing. Either way: just run full.
-        return tuple(kernel_fn(ins))
-    LB = BR * LANES
-    mask_b = unres.reshape(NB, LB).max(axis=1)
-    count = jnp.sum(mask_b).astype(jnp.int32)
-    pos = (jnp.cumsum(mask_b) - mask_b).astype(jnp.int32)
-    # flagged block -> its compact slot; unflagged -> M (dropped)
-    slot = jnp.where(mask_b > F32(0.5), pos, M)
-    idx0 = jnp.zeros((M,), jnp.int32).at[slot].set(
-        jnp.arange(NB, dtype=jnp.int32), mode="drop")
-    slot_valid = jnp.arange(M, dtype=jnp.int32) < count
-
-    def residual():
-        g_idx = jnp.where(slot_valid, idx0, 0)   # pad slots redo block 0
-        sub_ins = [a.reshape(NB, LB)[g_idx].reshape(M * BR, LANES)
-                   for a in ins]
-        sub_outs = kernel_fn(sub_ins)
-        s_idx = jnp.where(slot_valid, idx0, NB)  # pad slots dropped
-        new = []
-        for o_full, s in zip(outs, sub_outs):
-            ob = o_full.reshape(NB, LB)
-            sb = s.reshape(M, LB)
-            new.append(ob.at[s_idx].set(sb, mode="drop")
-                       .reshape(rows_total, LANES))
-        return tuple(new)
-
-    def fallback():
-        return tuple(kernel_fn(ins))
-
-    return jax.lax.cond(count <= M, residual, fallback)
-
-
-# ---------------------------------------------------------------------------
 # Full pallas-backend frame: K1 -> secondary batches -> K2 -> shade (XLA)
 # ---------------------------------------------------------------------------
 
+MAX_TILE_ROWS = 8  # 1,024 rays per block: at most 4 rays per thread
+
+
 def _validate_pallas_settings(settings: RenderSettings) -> None:
-    """Refuse settings that would crash or silently mis-tile the real
-    Mosaic backend (a bad value must raise here, not SIGABRT the process
-    inside the TPU compiler)."""
-    if settings.tile_rows <= 0 or settings.tile_rows % 8 != 0:
+    """Refuse settings the Triton route cannot compile (block shapes must
+    be powers of two) or that would spill every ray's march state out of
+    registers, before any kernel is traced."""
+    R = settings.tile_rows
+    if R <= 0 or R & (R - 1) or R > MAX_TILE_ROWS:
         raise ValueError(
-            f"tile_rows must be a positive multiple of 8 (TPU sublane "
-            f"layout); got {settings.tile_rows}")
-    if settings.subtile_rows and not _interpret():
-        raise ValueError(
-            "subtile_rows > 0 crashes Mosaic's ApplyVectorLayout on real "
-            "TPU (vector_extract_strided_slice limits check, observed on "
-            "v5e — see RenderSettings.subtile_rows); it is only usable "
-            "under interpret mode (CPU)")
+            f"tile_rows must be a power of two in [1, {MAX_TILE_ROWS}] "
+            f"(Triton block shapes are powers of two); got {R}")
     if settings.max_steps <= 0 or settings.shadow_steps <= 0:
         raise ValueError(
             f"step budgets must be positive; got max_steps="
@@ -2368,7 +2090,7 @@ def _validate_pallas_settings(settings: RenderSettings) -> None:
 
 def _maybe_warn_crowd(static, settings: RenderSettings) -> None:
     """Large scene + flag off -> point the user at vector_objects (the
-    statically-unrolled path compiles ~0.67 s/object on TPU)."""
+    statically-unrolled path traces and compiles every object anew)."""
     if settings.vector_objects:
         return
     probe = split_crowd(static, settings.with_(vector_objects=True))[0]
@@ -2376,19 +2098,36 @@ def _maybe_warn_crowd(static, settings: RenderSettings) -> None:
         import warnings
         warnings.warn(
             f"scene has {len(probe.members)} crowd-eligible objects; "
-            "the statically-unrolled pallas path compiles ~0.67 s/object "
-            "on TPU — consider RenderSettings(vector_objects=True) "
-            "(O(1) compile, bitwise-equal geometry)", RuntimeWarning)
+            "the statically-unrolled pallas path compiles every object "
+            "separately — consider RenderSettings(vector_objects=True) "
+            "(compile cost independent of the crowd size, bitwise-equal "
+            "geometry)", RuntimeWarning)
+
+
+def _fused_buffers(outs, tiles: FrameTiles, H: int, W: int,
+                   lead=()) -> FrameBuffers:
+    """KF outputs -> FrameBuffers of shape lead + (H, W[, 3])."""
+    r, g, b, t, obj, nx, ny, nz, hit_f = (
+        tiles.untile(a.reshape(lead + (tiles.rows_total, LANES)), H, W)
+        for a in outs)
+    return FrameBuffers(
+        rgb=jnp.stack([r, g, b], axis=-1),
+        depth=t,
+        normal=jnp.stack([nx * hit_f, ny * hit_f, nz * hit_f], axis=-1),
+        hit=hit_f,
+        obj_id=jnp.where(hit_f > F32(0.5), obj.astype(jnp.int32),
+                         jnp.int32(-1)),
+    )
 
 
 def render_frame_pallas(static, intr, settings: RenderSettings, params,
                         R_flat, cam_pos) -> FrameBuffers:
-    """Full pallas frame with SQUARE pixel tiles.
+    """Full pallas frame over pixel-patch tiles (see tile_shape).
 
-    Each (tile_rows, 128) kernel block is a tile_rows x 128 *rectangle of
-    the image*, not a row-major strip — spatial coherence is what makes the
-    per-tile early exit pay (a sky tile exits in a few proxy steps; a
-    fractal tile runs long without holding the rest of the frame hostage).
+    Each tile_rows x 128 kernel block is a patch *of the image*, not a
+    row-major strip — spatial coherence is what makes the per-block
+    early exit pay (a sky patch exits in a few steps; a fractal patch
+    runs long without holding the rest of the frame hostage).
     Returns flat row-major FrameBuffers of length H*W.
     """
     from surfjax.core.camera import camera_ray_dirs_dyn
@@ -2396,170 +2135,74 @@ def render_frame_pallas(static, intr, settings: RenderSettings, params,
     _validate_pallas_settings(settings)
     _maybe_warn_crowd(static, settings)
     H, W = intr.height, intr.width
-    R = settings.tile_rows
-    H2 = ((H + R - 1) // R) * R
-    W2 = ((W + LANES - 1) // LANES) * LANES
-    ty, tx = H2 // R, W2 // LANES
+    tiles = frame_tiles(intr, settings.tile_rows)
 
-    rows = jnp.minimum(jnp.arange(H2, dtype=jnp.float32), F32(H - 1))
-    cols = jnp.minimum(jnp.arange(W2, dtype=jnp.float32), F32(W - 1))
-    rr, cc = jnp.meshgrid(rows, cols, indexing="ij")
-
-    def tile_layout(a):
-        return (a.reshape(ty, R, tx, LANES).transpose(0, 2, 1, 3)
-                .reshape(ty * tx * R, LANES))
-
-    def untile(a):
-        a = a.reshape(ty, tx, R, LANES).transpose(0, 2, 1, 3)
-        return a.reshape(H2, W2)[:H, :W].reshape(-1)
-
-    rr_t = tile_layout(rr)
-    cc_t = tile_layout(cc)
-    d = camera_ray_dirs_dyn(intr, R_flat, rr_t, cc_t)
-    o = (jnp.broadcast_to(cam_pos[0], rr_t.shape),
-         jnp.broadcast_to(cam_pos[1], rr_t.shape),
-         jnp.broadcast_to(cam_pos[2], rr_t.shape))
-
-    # cone-march priming (large frames): a 1/4-res pass bounds each 4x4
-    # pixel block's safe SDF-march start — interior rays then skip most of
-    # their descent, sky blocks skip the march entirely. Conservative by
-    # construction (see _prime_march); analytic/mesh paths are unaffected.
-    _, sdf_objs, _ = _split(static)
-    t0_t = None
-    if (settings.prime and sdf_objs
-            and min(H, W) >= settings.prime_min
-            # priming exists for iterated-DE scenes; with a crowd active
-            # the proxy/prime pass is skipped (crowd members are cheap
-            # primitives and _prime_body is not crowd-aware)
-            and split_crowd(static, settings)[0] is None):
-        C = 4
-        Hc, Wc = H2 // C, W2 // C
-        Rc = 16
-        Hc2 = ((Hc + Rc - 1) // Rc) * Rc
-        Wc2 = ((Wc + LANES - 1) // LANES) * LANES
-        tyc, txc = Hc2 // Rc, Wc2 // LANES
-        ic = jnp.arange(Hc2, dtype=jnp.float32)
-        jc = jnp.arange(Wc2, dtype=jnp.float32)
-        # block-center ray = midpoint of the (edge-clamped) child pixel
-        # range, so every child is within 1.5 px of it on each axis
-        rows_c = (jnp.minimum(ic * 4, F32(H - 1))
-                  + jnp.minimum(ic * 4 + 3, F32(H - 1))) * F32(0.5)
-        cols_c = (jnp.minimum(jc * 4, F32(W - 1))
-                  + jnp.minimum(jc * 4 + 3, F32(W - 1))) * F32(0.5)
-        rr_c, cc_c = jnp.meshgrid(rows_c, cols_c, indexing="ij")
-
-        def tile_c(a):
-            return (a.reshape(tyc, Rc, txc, LANES).transpose(0, 2, 1, 3)
-                    .reshape(tyc * txc * Rc, LANES))
-
-        rr_ct = tile_c(rr_c)
-        cc_ct = tile_c(cc_c)
-        d_c = camera_ray_dirs_dyn(intr, R_flat, rr_ct, cc_ct)
-        o_c = (jnp.broadcast_to(cam_pos[0], rr_ct.shape),
-               jnp.broadcast_to(cam_pos[1], rr_ct.shape),
-               jnp.broadcast_to(cam_pos[2], rr_ct.shape))
-        # child centers lie within 1.5*sqrt(2) px of the block-center ray;
-        # march a 2x cone so children keep a k_blk*t clearance at t_safe
-        k_blk = 1.5 * np.sqrt(2.0) / min(intr.fx, intr.fy)
-        t0_c = prime_tile_kernel(static, settings, float(2.0 * k_blk), Rc,
-                                 params["leaf_params"],
-                                 params["node_params"], o_c, d_c)
-        t0_img = (t0_c.reshape(tyc, txc, Rc, LANES).transpose(0, 2, 1, 3)
-                  .reshape(Hc2, Wc2)[:Hc, :Wc])
-        t0_full = jnp.repeat(jnp.repeat(t0_img, C, axis=0), C, axis=1)
-        t0_t = tile_layout(t0_full)
-
-    # mesh-free frames take KF, the fused megakernel (ray gen + trace +
-    # AO + shadows + shading in ONE pallas pass — no ray/G-buffer HBM
-    # round trips, no XLA glue); mesh scenes and the capped-march
-    # residual keep the split K1 -> merge -> K2 pipeline.
-    if fused_frame_ok(static, settings):
+    # mesh-free frames take KF, the fused kernel (ray gen + trace + AO +
+    # shadows + shading in ONE pallas pass — no ray/G-buffer round trips
+    # through device memory, no XLA glue); mesh scenes keep the split
+    # K1 -> merge -> K2 pipeline.
+    if fused_frame_ok(static):
         cam_rows = jnp.concatenate([R_flat.reshape(-1),
                                     cam_pos.reshape(-1)])[None, :]
-        t0_in = jnp.zeros_like(rr_t) if t0_t is None else t0_t
-        r, g, b, t, obj, nx, ny, nz, hit_f = frame_fused_kernel(
-            static, settings, intr, tx, params["leaf_params"],
+        outs = frame_fused_kernel(
+            static, settings, intr, params["leaf_params"],
             params["node_params"], cam_rows, params["lights"],
-            params["materials"], params["ambient"], t0_in)
-        hitf = untile(hit_f)
-        return FrameBuffers(
-            rgb=jnp.stack([untile(r), untile(g), untile(b)], axis=-1),
-            depth=untile(t),
-            normal=jnp.stack([untile(nx) * hitf, untile(ny) * hitf,
-                              untile(nz) * hitf], axis=-1),
-            hit=hitf,
-            obj_id=jnp.where(hitf > F32(0.5),
-                             untile(obj).astype(jnp.int32),
-                             jnp.int32(-1)),
-        )
+            params["materials"], params["ambient"])
+        fb = _fused_buffers(outs, tiles, H, W)
+        return FrameBuffers(*(a.reshape((H * W,) + a.shape[2:])
+                              for a in fb))
 
-    fb = _render_padded(static, settings, params, o, d, t0=t0_t)
+    rows = jnp.minimum(jnp.arange(tiles.ty * tiles.th, dtype=jnp.float32),
+                       F32(H - 1))
+    cols = jnp.minimum(jnp.arange(tiles.tx * tiles.tw, dtype=jnp.float32),
+                       F32(W - 1))
+    rr, cc = jnp.meshgrid(rows, cols, indexing="ij")
+    rr_t = tiles.tile(rr)
+    cc_t = tiles.tile(cc)
+    d = camera_ray_dirs_dyn(intr, R_flat, rr_t, cc_t)
+    o = tuple(jnp.broadcast_to(cam_pos[k], rr_t.shape) for k in range(3))
+    fb = _render_padded(static, settings, params, o, d)
+
+    def untile(a):
+        return tiles.untile(a.reshape(rr_t.shape), H, W).reshape(-1)
+
     return FrameBuffers(
-        rgb=jnp.stack([untile(fb.rgb[..., 0].reshape(o[0].shape)),
-                       untile(fb.rgb[..., 1].reshape(o[0].shape)),
-                       untile(fb.rgb[..., 2].reshape(o[0].shape))], axis=-1),
-        depth=untile(fb.depth.reshape(o[0].shape)),
-        normal=jnp.stack([untile(fb.normal[..., i].reshape(o[0].shape))
-                          for i in range(3)], axis=-1),
-        hit=untile(fb.hit.reshape(o[0].shape)),
-        obj_id=untile(fb.obj_id.astype(jnp.float32)
-                      .reshape(o[0].shape)).astype(jnp.int32),
+        rgb=jnp.stack([untile(fb.rgb[..., k]) for k in range(3)], axis=-1),
+        depth=untile(fb.depth),
+        normal=jnp.stack([untile(fb.normal[..., k]) for k in range(3)],
+                         axis=-1),
+        hit=untile(fb.hit),
+        obj_id=untile(fb.obj_id.astype(jnp.float32)).astype(jnp.int32),
     )
 
 
-def fused_frame_ok(static, settings: RenderSettings) -> bool:
-    """True when a frame can take KF (the fused megakernel): mesh-free
-    scene on the plain tile path. Mesh merges and the capped-march
-    residual keep the split K1 -> K2 pipeline."""
+def fused_frame_ok(static) -> bool:
+    """True when a frame can take KF (the fused kernel): a mesh-free
+    scene. Mesh merges keep the split K1 -> K2 pipeline."""
     _, _, mesh_objs = _split(static)
-    return (not mesh_objs
-            and not settings.march_cap and not settings.shadow_march_cap)
+    return not mesh_objs
 
 
 def render_sequence_pallas(static, intr, settings: RenderSettings, params,
                            R_flats, positions) -> FrameBuffers:
-    """F-frame animated path as ONE fused pallas call (grid = F x tiles).
+    """F-frame animated path as ONE fused pallas call (grid = F x patches).
 
-    The TPU-native form of BASELINE.json:11's 128-frame on-device
-    sequence: per-frame cameras ride SMEM rows, so there is no per-frame
+    BASELINE.json:11's 128-frame on-device sequence: per-frame cameras
+    are rows of a small table every block reads, so there is no per-frame
     dispatch, scan step or XLA glue at all. Caller must check
-    fused_frame_ok (and settings.prime off — the priming pass is a
-    single-frame construct). Returns FrameBuffers stacked on a leading
-    frame axis: rgb (F, H, W, 3), depth/hit (F, H, W), ..."""
+    fused_frame_ok. Returns FrameBuffers stacked on a leading frame
+    axis: rgb (F, H, W, 3), depth/hit (F, H, W), ..."""
     _validate_pallas_settings(settings)
     _maybe_warn_crowd(static, settings)
-    H, W = intr.height, intr.width
-    R = settings.tile_rows
-    H2 = ((H + R - 1) // R) * R
-    W2 = ((W + LANES - 1) // LANES) * LANES
-    ty, tx = H2 // R, W2 // LANES
-    rows_total = ty * tx * R
     F = R_flats.shape[0]
     cam_rows = jnp.concatenate(
         [R_flats.reshape(F, 9), positions.reshape(F, 3)], axis=1)
-    t0 = jnp.zeros((F * rows_total, LANES), jnp.float32)
-    r, g, b, t, obj, nx, ny, nz, hit_f = frame_fused_kernel(
-        static, settings, intr, tx, params["leaf_params"],
+    outs = frame_fused_kernel(
+        static, settings, intr, params["leaf_params"],
         params["node_params"], cam_rows, params["lights"],
-        params["materials"], params["ambient"], t0)
-
-    def untile_seq(a):
-        a = (a.reshape(F, ty, tx, R, LANES).transpose(0, 1, 3, 2, 4)
-             .reshape(F, H2, W2))
-        return a[:, :H, :W]
-
-    hitf = untile_seq(hit_f)
-    return FrameBuffers(
-        rgb=jnp.stack([untile_seq(r), untile_seq(g), untile_seq(b)],
-                      axis=-1),
-        depth=untile_seq(t),
-        normal=jnp.stack([untile_seq(nx) * hitf, untile_seq(ny) * hitf,
-                          untile_seq(nz) * hitf], axis=-1),
-        hit=hitf,
-        obj_id=jnp.where(hitf > F32(0.5),
-                         untile_seq(obj).astype(jnp.int32),
-                         jnp.int32(-1)),
-    )
+        params["materials"], params["ambient"])
+    return _fused_buffers(outs, frame_tiles(intr, settings.tile_rows),
+                          intr.height, intr.width, lead=(F,))
 
 
 def _pad_rays(arrs, rows: int):
@@ -2577,6 +2220,7 @@ def _pad_rays(arrs, rows: int):
 def render_rays_pallas(static, settings: RenderSettings, params, o, d
                        ) -> FrameBuffers:
     """Pallas-backend render of a flat ray batch (pads to tile multiple)."""
+    _validate_pallas_settings(settings)
     (ox, oy, oz, dx, dy, dz), n_rays = _pad_rays(
         (o[0], o[1], o[2], d[0], d[1], d[2]), settings.tile_rows)
     fb = _render_padded(static, settings, params,
@@ -2590,14 +2234,13 @@ def render_rays_pallas(static, settings: RenderSettings, params, o, d
                         obj_id=unpad(fb.obj_id))
 
 
-def _pallas_primary(static, settings: RenderSettings, params, o2, d2,
-                    t0=None):
+def _pallas_primary(static, settings: RenderSettings, params, o2, d2):
     """Primary stage of the pallas frame on (rows_total, 128)-tiled rays:
-    K1 (+capped-march residual) -> mesh packet-kernel merge -> AO fix at
-    mesh receivers. -> (t, obj, n, n_geom, ao, hit_f); t is the raw march
-    t (callers mask by hit_f). Shared by _render_padded and the
-    differentiable hybrid forward (surfjax/diff/hybrid.py), so the fit
-    path's hit-finding is the identical compiled program."""
+    K1 -> mesh packet-kernel merge -> AO fix at mesh receivers.
+    -> (t, obj, n, n_geom, ao, hit_f); t is the raw march t (callers mask
+    by hit_f). Shared by _render_padded and the differentiable hybrid
+    forward (surfjax/diff/hybrid.py), so the fit path's hit-finding is
+    the identical compiled program."""
     ir = static.ir
     _, _, mesh = _split(static)
 
@@ -2606,63 +2249,21 @@ def _pallas_primary(static, settings: RenderSettings, params, o2, d2,
     ox, oy, oz = o2
     dx, dy, dz = d2
     # non-mesh scene (a scene of ONLY meshes still needs the blank frame)
-    cap = settings.march_cap
-    t0_arr = jnp.zeros_like(ox) if t0 is None else t0
-    t, obj, n, ao, hit_f, unres = render_tile_kernel(
-        static, settings, cap, lp, nparams, (ox, oy, oz),
-        (dx, dy, dz), t0=t0_arr)
-    if cap:
-        def k1_full(sub):
-            tt, oo, nn, aa, hh, _ = render_tile_kernel(
-                static, settings, 0, lp, nparams,
-                (sub[0], sub[1], sub[2]), (sub[3], sub[4], sub[5]),
-                t0=sub[6])
-            return [tt, oo, nn[0], nn[1], nn[2], aa, hh]
-
-        t, obj, nx_, ny_, nz_, ao, hit_f = _block_residual(
-            unres, [ox, oy, oz, dx, dy, dz, t0_arr],
-            [t, obj, n[0], n[1], n[2], ao, hit_f],
-            k1_full, settings.tile_rows)
-        n = (nx_, ny_, nz_)
+    t, obj, n, ao, hit_f = render_tile_kernel(
+        static, settings, lp, nparams, (ox, oy, oz), (dx, dy, dz))
 
     # mesh objects: packet kernel per mesh; merge nearest
     n_geom = n
     mesh_won = jnp.zeros_like(ox)
     if mesh:
-        from surfjax.kernels.mesh_tile import MAX_PACKET_TRIS, \
-            mesh_tile_kernel
+        from surfjax.kernels.mesh_tile import mesh_tile_kernel
         for i, oir in mesh:
             ms = static.mesh_static[oir.mesh]
-            if ms.n_tris > MAX_PACKET_TRIS:
-                # the packet kernel's overflow fallback scans a VMEM-
-                # resident full table; huge meshes exceed VMEM, so use
-                # the (slow on TPU, correct) grid-DDA path for this mesh
-                import warnings
-                warnings.warn(
-                    f"mesh with {ms.n_tris} tris exceeds the packet "
-                    f"kernel budget ({MAX_PACKET_TRIS}); using grid-DDA",
-                    RuntimeWarning)
-                from surfjax.engines.mesh import intersect_mesh, mesh_normal
-                o_flat = tuple(c.reshape(-1) for c in (ox, oy, oz))
-                d_flat = tuple(c.reshape(-1) for c in (dx, dy, dz))
-                t_f, tri_f = intersect_mesh(ms, oir.mesh, params, o_flat,
-                                            d_flat, settings.t_min,
-                                            settings.t_max)
-                t_hitf = jnp.where(t_f < BIG * F32(0.5), t_f, F32(0.0))
-                p_f = tuple(o_flat[k] + t_hitf * d_flat[k]
-                            for k in range(3))
-                n_f = mesh_normal(ms, oir.mesh, params, p_f, tri_f)
-                shp = ox.shape
-                t_m = t_f.reshape(shp)
-                n_s = tuple(c.reshape(shp) for c in n_f)
-                gn = _mesh_params(params, oir.mesh)["tri_n"][tri_f]
-                n_g = tuple(gn[:, k].reshape(shp) for k in range(3))
-            else:
-                tri_packed = jnp.asarray(
-                    _mesh_params(params, oir.mesh)["tri_packed"])
-                t_m, n_s, n_g = mesh_tile_kernel(
-                    ms, settings, tri_packed, (ox, oy, oz), (dx, dy, dz),
-                    settings.t_max)
+            tri_packed = jnp.asarray(
+                _mesh_params(params, oir.mesh)["tri_packed"])
+            t_m, n_s, n_g = mesh_tile_kernel(
+                ms, settings, tri_packed, (ox, oy, oz), (dx, dy, dz),
+                settings.t_max)
             better = t_m < jnp.where(hit_f > F32(0.5), t, BIG)
             t = jnp.where(better, t_m, t)
             obj = jnp.where(better, F32(float(i)), obj)
@@ -2704,59 +2305,28 @@ def _pallas_primary(static, settings: RenderSettings, params, o2, d2,
 def _pallas_vis(static, settings: RenderSettings, params, p_off, l,
                 dist_eff, soft_k):
     """One light's shadow visibility on (rows, 128)-tiled receivers:
-    K2 (+capped residual) -> mesh any-hit occlusion. Shared by
-    _render_padded and the hybrid fit forward."""
+    K2 -> mesh any-hit occlusion. Shared by _render_padded and the
+    hybrid fit forward."""
     lp = params["leaf_params"]
     nparams = params["node_params"]
     _, _, mesh = _split(static)
-    scap = settings.shadow_march_cap
-    vis, sh_unres = trace_rays_kernel(static, settings, scap, lp,
-                                      nparams, p_off, l, dist_eff,
-                                      soft_k)
-    if scap:
-        def k2_full(sub):
-            v, _ = trace_rays_kernel(
-                static, settings, 0, lp, nparams,
-                (sub[0], sub[1], sub[2]),
-                (sub[3], sub[4], sub[5]), sub[6], sub[7])
-            return [v]
-
-        vis, = _block_residual(
-            sh_unres,
-            [p_off[0], p_off[1], p_off[2], l[0], l[1], l[2],
-             dist_eff, soft_k], [vis], k2_full,
-            settings.tile_rows)
+    vis = trace_rays_kernel(static, settings, lp, nparams, p_off, l,
+                            dist_eff, soft_k)
     if mesh:
-        from surfjax.kernels.mesh_tile import MAX_PACKET_TRIS, \
-            mesh_tile_kernel
+        from surfjax.kernels.mesh_tile import mesh_tile_kernel
         for _, oir in mesh:
             ms = static.mesh_static[oir.mesh]
-            if ms.n_tris > MAX_PACKET_TRIS:
-                # same VMEM guard as the primary-ray merge above
-                from surfjax.engines.mesh import intersect_mesh
-                shp = p_off[0].shape
-                t_f, _ = intersect_mesh(
-                    ms, oir.mesh, params,
-                    tuple(c.reshape(-1) for c in p_off),
-                    tuple(c.reshape(-1) for c in l),
-                    settings.shadow_eps, dist_eff.reshape(-1))
-                t_m = t_f.reshape(shp)
-            else:
-                tri_packed = jnp.asarray(
-                    _mesh_params(params, oir.mesh)["tri_packed"])
-                t_m, _, _ = mesh_tile_kernel(
-                    ms, settings, tri_packed, p_off, l, dist_eff,
-                    any_hit=True)
-            vis = vis * jnp.where(t_m < dist_eff,
-                                  F32(0.0), F32(1.0))
+            tri_packed = jnp.asarray(
+                _mesh_params(params, oir.mesh)["tri_packed"])
+            t_m, _, _ = mesh_tile_kernel(
+                ms, settings, tri_packed, p_off, l, dist_eff, any_hit=True)
+            vis = vis * jnp.where(t_m < dist_eff, F32(0.0), F32(1.0))
     return vis
 
 
-def _render_padded(static, settings: RenderSettings, params, o2, d2,
-                   t0=None) -> FrameBuffers:
-    """Core pallas frame on (rows_total, 128)-tiled rays; flat outputs.
-
-    t0: optional per-lane primed SDF-march start."""
+def _render_padded(static, settings: RenderSettings, params, o2, d2
+                   ) -> FrameBuffers:
+    """Core pallas frame on (rows_total, 128)-tiled rays; flat outputs."""
     from surfjax.core.scene_compile import (
         LIGHT_DIRECTIONAL, LIGHT_POINT,
     )
@@ -2766,7 +2336,7 @@ def _render_padded(static, settings: RenderSettings, params, o2, d2,
     ox, oy, oz = o2
     dx, dy, dz = d2
     t, obj, n, n_geom, ao, hit_f = _pallas_primary(
-        static, settings, params, o2, d2, t0=t0)
+        static, settings, params, o2, d2)
     t_sane = jnp.where(hit_f > F32(0.5), t, F32(0.0))
     p = (ox + t_sane * dx, oy + t_sane * dy, oz + t_sane * dz)
     eps = F32(settings.shadow_eps)

@@ -1,15 +1,15 @@
 """Sharding & communication layer (SURVEY.md §1 L1, §2.2/§2.3).
 
-BASELINE.json:5 — "frames shard over a TPU mesh by image tiles with no
-inter-step host round-trips". Two data axes [SURVEY.md §2.2]:
+BASELINE.json:5 — frames shard over a device mesh by image tiles with no
+inter-step host round-trips. Two data axes [SURVEY.md §2.2]:
   * 'tile'  — image tiles (flat ray ranges) within a frame;
   * 'frame' — frames of an animation batch [BASELINE.json:11].
 
-All communication is XLA collectives over ICI/DCN reached through
+All communication is XLA collectives (NCCL on GPUs) reached through
 jax.sharding.Mesh + shard_map (SURVEY.md §2.3): the compiled ScenePack is
 replicated (broadcast once), per-device framebuffer shards stay resident,
 and the only cross-device traffic is the frame-end gather when the caller
-fetches results. `jax.distributed.initialize` covers multi-host (DCN).
+fetches results. `jax.distributed.initialize` covers multi-host runs.
 
 Inside shard_map, the march's early-exit reduction (`jnp.all(done)`) is
 *per-shard*, so each device exits its own tiles as soon as they converge —

@@ -11,8 +11,8 @@ module shards the triangle table over the device mesh and streams it:
     (one neighbor hop per step, D steps total) — the ring-attention
     pattern with the scene in the KV role: per-device residency is
     n_tris/D triangles (plus the in-flight shard), and the full mesh
-    crosses ICI exactly (D-1)/D times per ray batch, all of it
-    neighbor-hop traffic (no all-to-all, no DCN).
+    crosses the device links exactly (D-1)/D times per ray batch, all
+    of it neighbor-hop traffic (no all-to-all).
 
 Exactness: the nearest hit is the lexicographic minimum over
 (t, global tri id), an associative+commutative reduction, so the order
@@ -160,7 +160,7 @@ def _ring_fn(mesh: Mesh, axis: str, D: int, t_min: float):
             t_best, tri_best, v0, e1, e2, ids = carry
             t_best, tri_best = _mt_shard(o_l, d_l, v0, e1, e2, ids,
                                          t_min, tmax, t_best, tri_best)
-            # rotate the shard one hop around the ring (neighbor ICI)
+            # rotate the shard one hop around the ring
             v0 = jax.lax.ppermute(v0, axis, perm)
             e1 = jax.lax.ppermute(e1, axis, perm)
             e2 = jax.lax.ppermute(e2, axis, perm)

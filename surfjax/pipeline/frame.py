@@ -302,13 +302,13 @@ def render_frame(scene, camera, settings: RenderSettings = RenderSettings()
 
 @functools.partial(jax.jit, static_argnums=(0, 1, 2))
 def _sequence_jit(static, intr, settings, params, R_flats, cam_positions):
-    if settings.backend == "pallas" and not settings.prime:
+    if settings.backend == "pallas":
         from surfjax.kernels.render_tile import (
             fused_frame_ok, render_sequence_pallas,
         )
-        if fused_frame_ok(static, settings):
-            # whole animated path in ONE fused pallas call (F x tiles
-            # grid, per-frame cameras in SMEM) — no per-frame dispatch
+        if fused_frame_ok(static):
+            # whole animated path in ONE fused pallas call (F x patches
+            # grid, per-frame camera rows) — no per-frame dispatch
             return render_sequence_pallas(static, intr, settings, params,
                                           R_flats, cam_positions)
     step = lambda R, t: frame_step(static, intr, settings, params, R, t)

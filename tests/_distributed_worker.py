@@ -2,8 +2,8 @@
 
 Run as:  python tests/_distributed_worker.py PROCESS_ID NPROCS PORT OUT.npz
 
-Each worker joins a jax.distributed cluster over localhost (the only
-DCN-shaped configuration this single-host environment permits), brings 4
+Each worker joins a jax.distributed cluster over localhost (a
+multi-process cluster on one host), brings 4
 virtual CPU devices (set via env by the parent), builds the GLOBAL
 ('frame','tile') = (2, 4) mesh over all 8 devices, renders the fixture
 animation with render_sequence_sharded, allgathers the global
@@ -58,7 +58,7 @@ def main():
     fb = render_sequence_sharded(scene, cam, (Rs, ts), settings, mesh)
 
     # materialize the global result on every host (cross-process
-    # allgather — actual DCN-path collective traffic)
+    # allgather — actual cross-process collective traffic)
     rgb = multihost_utils.process_allgather(fb.rgb, tiled=True)
     depth = multihost_utils.process_allgather(fb.depth, tiled=True)
     hit = multihost_utils.process_allgather(fb.hit, tiled=True)

@@ -37,7 +37,7 @@ def tiny_config(tmp_path):
 
 
 def _run(*args):
-    env = dict(os.environ, PYTHONPATH="", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-m", "surfjax", *args],
                        capture_output=True, text=True, env=env,
                        cwd=os.path.dirname(os.path.dirname(
@@ -84,3 +84,18 @@ def test_cli_fit(tiny_config):
     out = _run("fit", "--config", tiny_config, "--mode", "pose",
                "--steps", "8")
     assert "fit_pose" in out
+
+
+@pytest.mark.parametrize("cmd", ["animate", "fit"])
+def test_cli_pallas_backend(tiny_config, tmp_path, cmd):
+    """--backend pallas reaches the kernels from every subcommand (here
+    interpreted; compiled Triton on a GPU)."""
+    if cmd == "animate":
+        out_dir = str(tmp_path / "frames")
+        out = _run("animate", "--config", tiny_config, "--frames", "2",
+                   "--backend", "pallas", "--out-dir", out_dir)
+        assert len(os.listdir(out_dir)) == 2
+    else:
+        out = _run("fit", "--config", tiny_config, "--mode", "sdf",
+                   "--steps", "2", "--backend", "pallas")
+        assert "fit_sdf" in out

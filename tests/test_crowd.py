@@ -1,8 +1,8 @@
 """Vectorized object loop ("crowd") tests — r4, verdict Weak #4.
 
 RenderSettings.vector_objects switches single-leaf sphere/box SDF
-objects from per-object static unrolling (compile cost ~0.67 s/object on
-TPU) to ONE fori_loop with dynamic SMEM parameter reads. The per-lane
+objects from per-object static unrolling (compile cost grows with every
+object) to ONE fori_loop with dynamic parameter reads. The per-lane
 arithmetic is identical, so the crowd path must be BITWISE equal to the
 unrolled path; these tests pin that, plus membership rules and golden
 agreement.
@@ -62,8 +62,8 @@ def _assert_bitwise(fa, fb_):
     equal; rgb gets a <=1-ULP envelope — the crowd shade evaluates the
     same per-lane arithmetic but with gathered (array) material params,
     and XLA fuses that epilogue differently (the documented legal-fusion
-    class, docs/ROUND3.md side-finding: <=2 ULP rgb drift; measured here
-    1-2 ULP on <2% of channels)."""
+    class: <=2 ULP rgb drift; measured here 1-2 ULP on <2% of
+    channels)."""
     from surfjax.io.image import ulp_diff_f32
     names = ("depth", "normal", "hit", "obj_id")
     for name, a, b in zip(names, _fb_tuple(fa)[1:], _fb_tuple(fb_)[1:]):
@@ -123,8 +123,8 @@ class TestCrowdBitwise:
                   for i in range(3))
         (ox, oy, oz, dx, dy, dz), _n = _pad_rays(
             (o[0], o[1], o[2], d[0], d[1], d[2]), s.tile_rows)
-        t_k, obj_k, n_k, ao_k, hit_k, _ = render_tile_kernel(
-            static, s, 0, params["leaf_params"], params["node_params"],
+        t_k, obj_k, n_k, ao_k, hit_k = render_tile_kernel(
+            static, s, params["leaf_params"], params["node_params"],
             (ox, oy, oz), (dx, dy, dz))
         t_t, obj_t, n_t, ao_t, hit_t = scene_march_twin(
             static, s, params["leaf_params"], params["node_params"],
@@ -270,8 +270,7 @@ def test_crowd_with_mesh_split_path():
 def test_crowd_scales_to_many_objects():
     """Functional check well past the unrolled path's practical compile
     ceiling: 64 single-leaf objects through the crowd fori_loop (trace
-    time is O(1) in member count; interpret-mode run here, Mosaic
-    crossover measured on TPU by tools/compile_scaling.py)."""
+    time is O(1) in member count; interpret-mode run here)."""
     rng = np.random.default_rng(11)
     scene = Scene()
     for i in range(64):

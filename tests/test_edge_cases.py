@@ -95,8 +95,8 @@ def test_single_frame_sequence():
 
 
 def test_pallas_settings_validation():
-    """Settings that would SIGABRT Mosaic (or silently mis-tile) must
-    raise a Python error at the pallas entry instead."""
+    """Settings the Triton route cannot compile (or that would silently
+    mis-tile) must raise a Python error at the pallas entry instead."""
     import pytest
 
     from surfjax import Camera, Material, PointLight, RenderSettings, \

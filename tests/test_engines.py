@@ -144,9 +144,9 @@ def test_mandelbulb_de_bounded():
 
 
 def test_mandelbulb_general_power_renders_and_matches_golden():
-    """power != 8 uses the general trig DE on the jnp/golden paths
-    (VERDICT round-1 item: no silently-nonfunctional API surface)."""
-    import pytest
+    """power != 8 uses the general trig DE on every path, the pallas
+    kernels included (no bounding-sphere shortcuts: the bulb bound
+    factors are validated for power 8 only)."""
     from surfjax import (
         Camera, Mandelbulb, Material, PointLight, RenderSettings, Scene,
         render,
@@ -169,9 +169,14 @@ def test_mandelbulb_general_power_renders_and_matches_golden():
     # trig (sin/cos/acos/atan2) differs between XLA and libm; chaotic DE
     # silhouettes may flip — the bulk must still be tight
     assert np.quantile(d, 0.99) < 1e-2
-    # the pallas kernel path specializes power=8 and must say so clearly
-    with pytest.raises(NotImplementedError, match="power=8"):
-        render(scene, cam, st.with_(backend="pallas", tile_rows=8))
+    # the oracle trajectory (over_relax=1.0): relaxed steps land hits
+    # elsewhere in the eps band, where FD normals of a fractal decorrelate
+    fb_p = render(scene, cam, st.with_(backend="pallas", tile_rows=8,
+                                       over_relax=1.0))
+    assert (np.asarray(fb_p.hit) == gold["hit"]).mean() > 0.99
+    d_p = np.abs(np.asarray(fb_p.rgb).astype(np.float64)
+                 - gold["rgb"].astype(np.float64))
+    assert np.quantile(d_p, 0.99) < 1e-2
 
 
 def test_bulb_bound_constants():

@@ -11,7 +11,7 @@ custom_vjp + differentiable jnp shading at the hit points. Pinned here:
      jnp path);
   3. hybrid pose loss/grad agrees with the jnp pipeline's to the
      marched-class tolerance (trajectories differ in the eps band —
-     the documented c5 carve-out class, tools/c5_attribution.py);
+     the documented c5 carve-out class);
   4. fit_pose converges with the hybrid forward.
 """
 
@@ -110,7 +110,7 @@ def test_hybrid_pose_grads_match_jnp_pipeline():
     Trajectories differ in the hit-eps band (kernel march over-relaxes,
     bound-enters, early-exits; the jnp pipeline's sphere_trace does
     not), so agreement is the marched-class tolerance, not bitwise —
-    same class as the TPU c5 gate (tools/fidelity_matrix.py)."""
+    the same class chip_smoke.py gates on the card."""
     from surfjax.diff.fit import pose_loss_and_grad
 
     scene, cam, settings = config5_anim_scene(48)

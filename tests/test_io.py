@@ -10,7 +10,8 @@ import struct
 import numpy as np
 
 from surfjax.io.image import (
-    load_golden, max_ulp, save_exr, save_golden, save_png, ulp_diff_f32,
+    load_golden, max_ulp, save_exr, save_golden, save_png, tonemap_u8,
+    ulp_diff_f32,
 )
 
 
@@ -80,6 +81,10 @@ def test_png_and_golden_roundtrip(tmp_path):
     p = str(tmp_path / "f.png")
     save_png(p, rgb)
     assert os.path.getsize(p) > 0
+    from PIL import Image
+    with Image.open(p) as im:
+        assert im.mode == "RGB" and im.size == (6, 4)
+        np.testing.assert_array_equal(np.asarray(im), tonemap_u8(rgb))
     g = str(tmp_path / "g.npz")
     bufs = {"rgb": rgb, "depth": rgb[..., 0]}
     save_golden(g, bufs)

@@ -1,8 +1,8 @@
 """Pallas kernel vs jnp-twin parity (SURVEY.md §4.3).
 
 On the CPU test backend the kernels run in interpret mode, which executes
-the same jnp ops as the twin — agreement here localizes any TPU-side
-difference to Mosaic lowering rather than the algorithm.
+the same jnp ops as the twin — agreement here localizes any GPU-side
+difference to the Triton lowering rather than the algorithm.
 """
 
 import jax
@@ -38,8 +38,8 @@ def test_kernel_matches_twin_config3():
 
     (ox, oy, oz, dx, dy, dz), n = _pad_rays(
         (o[0], o[1], o[2], d[0], d[1], d[2]), settings.tile_rows)
-    t_k, obj_k, n_k, ao_k, hit_k, _ = render_tile_kernel(
-        static, settings, 0, params["leaf_params"], params["node_params"],
+    t_k, obj_k, n_k, ao_k, hit_k = render_tile_kernel(
+        static, settings, params["leaf_params"], params["node_params"],
         (ox, oy, oz), (dx, dy, dz))
     t_t, obj_t, n_t, ao_t, hit_t = scene_march_twin(
         static, settings, params["leaf_params"], params["node_params"],
@@ -93,55 +93,9 @@ def test_pallas_backend_config3_tolerance():
     d_rgb = np.abs(np.asarray(fb_j.rgb) - np.asarray(fb_p.rgb))
     assert np.quantile(d_rgb, 0.99) < 5e-2
 
-def test_cone_prime_conservative():
-    """Opt-in cone-march priming: the 1/4-res pass must never tunnel —
-    hit masks match the unprimed render exactly; hit positions may move
-    within the eps tolerance band (fractal pixels decorrelate there)."""
-    from tests.scenes import config3_sdf
-    from surfjax import render
-    scene, cam, settings = config3_sdf(size=96)
-    st = settings.with_(backend="pallas", tile_rows=8,
-                        prime=True, prime_min=64)
-    fb_p = render(scene, cam, st)
-    fb_u = render(scene, cam, st.with_(prime=False))
-    hp = np.asarray(fb_p.hit)
-    np.testing.assert_array_equal(hp, np.asarray(fb_u.hit))
-    assert 0.2 < hp.mean() < 1.0
-    d = np.abs(np.asarray(fb_p.rgb) - np.asarray(fb_u.rgb))
-    assert d.mean() < 5e-3
-    # the test-size 4x4 block cone is ~10x wider than at 1080p, so only
-    # the bulk is asserted tight; outliers are the documented eps class
-    assert np.quantile(d, 0.99) < 0.1
-
-
-def test_capped_residual_bitwise_equal():
-    """march_cap/shadow_march_cap + residual pass == uncapped, bitwise
-    (kernels/render_tile.py::_block_residual). Caps chosen so the
-    residual fast path actually engages (cap 24/12) AND so the
-    over-capacity fallback branch is exercised (cap 2: nearly every
-    block is cut off, count > capacity -> full-frame fallback)."""
-    scene, cam, settings = config3_sdf(size=64)
-    settings = settings.with_(backend="pallas", tile_rows=8,
-                              soft_shadows=True, ao=True)
-    static, params = scene.freeze()
-    params = {k: jnp.asarray(v) for k, v in params.items()}
-    o, d = _rays(cam)
-    fb0 = render_rays_pallas(static, settings, params, o, d)
-    for mc, sc in ((24, 12), (2, 2)):
-        fb1 = render_rays_pallas(
-            static, settings.with_(march_cap=mc, shadow_march_cap=sc),
-            params, o, d)
-        np.testing.assert_array_equal(np.asarray(fb0.rgb),
-                                      np.asarray(fb1.rgb))
-        np.testing.assert_array_equal(np.asarray(fb0.depth),
-                                      np.asarray(fb1.depth))
-        np.testing.assert_array_equal(np.asarray(fb0.hit),
-                                      np.asarray(fb1.hit))
-
-
 def test_many_objects_scene_scale():
     """Scene-scale guard: ~32 objects through the pallas path (the
-    _read_params SMEM unpacking and per-object march unrolling scale
+    _read_params scalar unpacking and per-object march unrolling scale
     linearly with object count — this pins compile+run viability and
     jnp parity at that size)."""
     import itertools
@@ -184,8 +138,8 @@ def test_many_objects_scene_scale():
 
 
 def test_sequence_fused_matches_per_frame():
-    """The F-frame fused sequence kernel (one pallas call, F x tiles
-    grid, SMEM camera rows) vs per-frame rendering: hit masks identical,
+    """The F-frame fused sequence kernel (one pallas call, F x patches
+    grid, per-frame camera rows) vs per-frame rendering: hit masks identical,
     shading within the vmap fusion-order class."""
     import dataclasses
     from surfjax.core.camera import Intrinsics
@@ -405,14 +359,12 @@ def test_unroll_value_exact():
     clip = jnp.full(n, np.float32(settings.t_max))
     t1, clip2 = rt._bound_entry(b, o, d, t_start, clip, 1e-3)
 
-    saved = (rt.MARCH_UNROLL, rt.SOFT_MARCH_UNROLL, rt.PRIME_UNROLL,
-             sdf_mod.DE_UNROLL)
+    saved = (rt.MARCH_UNROLL, rt.SOFT_MARCH_UNROLL, sdf_mod.DE_UNROLL)
     try:
         results = []
         # budgets: 120 (divisible by 8), 126 (falls to 7), 127 (prime -> 1)
         for unroll in (1, 5, 8):
             rt.MARCH_UNROLL = rt.SOFT_MARCH_UNROLL = unroll
-            rt.PRIME_UNROLL = unroll
             sdf_mod.DE_UNROLL = unroll
             per_budget = []
             for steps in (120, 126, 127):
@@ -422,23 +374,13 @@ def test_unroll_value_exact():
                 s = rt._soft_march(sdf_i, o, d, 0.02, clip2, F32(8.0),
                                    steps, relax=settings.over_relax,
                                    park=park)
-                # cone-prime: park=None vs park must also be bitwise
-                # equal (a done lane's h flows into nothing)
-                pr0 = rt._prime_march(None, sdf_i, o, d, 1e-3, 8.0,
-                                      1e-3, steps, park=None)
-                pr1 = rt._prime_march(None, sdf_i, o, d, 1e-3, 8.0,
-                                      1e-3, steps, park=park)
-                np.testing.assert_array_equal(np.asarray(pr0),
-                                              np.asarray(pr1))
-                per_budget.append([np.asarray(a)
-                                   for a in (*m, *s, pr0)])
+                per_budget.append([np.asarray(a) for a in (*m, *s)])
             results.append(per_budget)
         for other in results[1:]:
             for ref_b, got_b in zip(results[0], other):
                 for a, c in zip(ref_b, got_b):
                     np.testing.assert_array_equal(a, c)
     finally:
-        (rt.MARCH_UNROLL, rt.SOFT_MARCH_UNROLL, rt.PRIME_UNROLL,
-         sdf_mod.DE_UNROLL) = saved
+        rt.MARCH_UNROLL, rt.SOFT_MARCH_UNROLL, sdf_mod.DE_UNROLL = saved
     # the workload exercised real marches (hits and penumbra darkening)
     assert float(results[0][0][1].sum()) > 0

@@ -12,11 +12,10 @@ OUTCOME (r3, measured — the runtime integration was built, measured and
 REVERTED; this tool is kept as the record): {DE_8 < 0.08} fills ~84% of
 the 1.2-ball (7.8M/23.9M cells at N=288) — the bulb is a solid blob
 whose lobes are surface corrugation, so 0.0% of silhouette rays miss an
-80-sphere validated cover and nothing can skip "between lobes". The
-tighter entry/exit (effective silhouette ~1.25 vs 1.38) measured NET
-NEGATIVE on the TPU: c3 1080p primary 13.90 -> 14.46 ms, full frame
-30.54 -> 31.26 ms (LoD), 42.38 -> 42.80 ms (exact) — the 80-sphere
-closed-form entry costs more than it saves. See docs/ROUND3.md.
+80-sphere validated cover and nothing can skip "between lobes", so the
+tighter entry/exit (effective silhouette ~1.25 vs 1.38) saves almost no
+march steps while the 80-sphere closed-form entry adds work to every
+ray.
 
 Soundness target (the only property the primary-march entry/exit gating
 needs): for every runtime hit threshold e <= TAU_RUN,

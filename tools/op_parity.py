@@ -3,14 +3,14 @@
 
 The device fidelity matrix attributes a residual non-bitwise pixel
 fraction (~26% on c3, identical across decomposition variants) to a
-"device-FP class" — legal per-op f32 differences between the TPU and the
-strict-FP CPU oracle. This tool converts that narrative into a
+"device-FP class" — legal per-op f32 differences between the device and
+the strict-FP CPU oracle. This tool converts that narrative into a
 measurement: it sweeps the primitive ops the shading/march chains are
 built from, plus the full shared shading equation, over representative
 f32 ranges, and reports max/quantile ULP distance between
 
     device   — the op evaluated by the CURRENT jax backend (run on the
-               TPU host for the real matrix; XLA-CPU is itself a useful
+               GPU for the real matrix; XLA-CPU is itself a useful
                baseline for the legal-fusion class)
     strict   — NumPy f32 two-step evaluation (the golden oracles'
                semantics: -ffp-contract=off, separate round per op)

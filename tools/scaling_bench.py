@@ -3,8 +3,8 @@
 Runs render_sequence_sharded over a virtual N-device CPU mesh (the same
 provisioning the test suite and the driver dryrun use) at several device
 counts and reports frames/s plus the speedup curve. On a real multi-chip
-slice the identical code paths shard over ICI; this tool documents that
-the sharding itself scales, with the caveat that virtual CPU devices
+machine the identical code paths shard over the device links; this tool
+documents that the sharding itself scales, with the caveat that virtual CPU devices
 share host cores, so the curve here mainly proves the collectives do not
 serialize (watch for slowdowns, not linear speedup).
 
